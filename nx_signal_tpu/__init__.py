@@ -1,6 +1,6 @@
-"""nx_signal_tpu — a TPU-native digital-signal-processing framework.
+"""nx_signal_tpu — a digital-signal-processing framework on JAX/XLA.
 
-Built from scratch on JAX/XLA/Pallas with the full capability surface of the
+Built from scratch on JAX/XLA with the full capability surface of the
 nx_signal reference library (scipy.signal-equivalent semantics): windowed
 STFT/ISTFT with deterministic overlap-add, window families, FIR design and
 application (direct / FFT / overlap-add / overlap-save convolution), mel
@@ -13,7 +13,7 @@ Layering (see SURVEY.md §7):
   ops/       scipy-semantics primitives (windows, waveforms, convolution,
              filters, peak finding, lambert_w, fft helpers)
   spectral/  composite STFT pipeline (framing, stft/istft, mel)
-  kernels/   Pallas TPU kernels for the hot paths
+  kernels/   framed-DFT and fused FIR+DFT matmul kernels for the hot paths
   parallel/  mesh + sharding + halo exchange + streaming
   models/    end-to-end pipelines (spectrogram, filter chains)
 """

@@ -4,7 +4,7 @@ The streaming processors (parallel/streaming.py) carry their entire stream
 summary as an explicit pytree of arrays, so elastic recovery reduces to
 serializing that pytree at a block boundary and restoring it in a fresh
 process. The reference has no streaming and no checkpointing — this is the
-TPU-framework equivalent of the orbax-based plan in SURVEY.md:332, built on
+This framework's equivalent of the orbax-based plan in SURVEY.md:332, built on
 numpy's npz container (dependency-free, deterministic bytes for a given
 state; orbax would add async/multihost sharding we don't need for carries
 that are a few KB).

@@ -2,7 +2,7 @@
 // lock-free SPSC ring buffer for streaming ingestion.
 //
 // The reference has no native layer (SURVEY.md §2: 100% Elixir); this is
-// the data-loader/runtime piece of the TPU framework, kept in C++ so long
+// the data-loader/runtime piece of the framework, kept in C++ so long
 // streams decode (PCM -> planar f32) at memory bandwidth off the Python
 // GIL. Exposed through a plain C ABI consumed via ctypes
 // (nx_signal_tpu/io/wav.py).
@@ -465,7 +465,7 @@ void raw_close(void* h) {
 //
 // The data-loader piece of the streaming runtime: a producer thread decodes
 // WAV blocks (planar f32) off the GIL and ahead of consumption, so disk +
-// decode overlap with TPU compute. Block protocol on the ring:
+// decode overlap with device compute. Block protocol on the ring:
 // [frame_count (1 float, exact for counts < 2^24), frame_count * channels
 // planar samples]; a frame_count of 0 marks end-of-stream.
 

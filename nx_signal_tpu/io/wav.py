@@ -285,7 +285,7 @@ def stream_wav(path, chunk_frames: int):
 
 class RingBuffer:
     """Lock-free SPSC float32 ring buffer (native). Producer thread pushes
-    decoded samples; the TPU feed thread pops fixed-size chunks.
+    decoded samples; the device feed thread pops fixed-size chunks.
 
     Examples:
 
@@ -342,7 +342,7 @@ class RingBuffer:
 class PrefetchingWavReader:
     """Double-buffered WAV block stream: a NATIVE background thread decodes
     `depth_blocks` blocks ahead into the lock-free ring while the caller
-    (e.g. the TPU feed loop) consumes — disk + PCM decode overlap with
+    (e.g. the device feed loop) consumes — disk + PCM decode overlap with
     compute, entirely off the GIL (the blocking prefetch_next call is a
     plain C call, so other Python threads keep running).
 

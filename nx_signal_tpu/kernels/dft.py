@@ -1,9 +1,8 @@
-"""Fused framing + window + DFT as MXU block-matmuls.
+"""Fused framing + window + DFT as block matmuls.
 
-The STFT hot path (SURVEY.md §3.1: the "fused window-multiply+frame"
-kernel). Instead of materializing the (frames, frame_length) matrix and
-calling the FFT (measured on v5e: 4.1 ms framing + 9.4 ms XLA rfft for
-16ch x 10s @ 48 kHz), the whole transform is expressed as
+The STFT's "fused window-multiply+frame" kernel (SURVEY.md §3.1). Instead
+of materializing the (frames, frame_length) matrix and calling the FFT,
+the whole transform is expressed as
 
     z = frames @ (diag(window) @ F)      F = DFT matrix [frame_length, bins]
 
@@ -12,15 +11,13 @@ contiguous reshape-blocks of the signal (spectral/framing.py), so
 
     z = sum_r  x_block_r  @  W[r*hop : r*hop + w_r, :]
 
-— C reshape+matmul+accumulate steps, zero gathers, zero materialization,
-all on the MXU (measured: DFT-matmul alone beats XLA's 512-pt FFT ~3x;
-fusing removes the framing pass entirely). O(N^2) vs O(N log N) only wins
-for small N — `good_matmul_fft_length` gates the dispatch; large FFTs stay
-on XLA's FFT.
+— C reshape+matmul+accumulate steps, zero gathers, zero materialization.
+The DFT is O(N^2) against the FFT's O(N log N), so it can only pay for
+small N; `good_matmul_fft_length` is the rule `method='auto'` follows.
 
 Real and imaginary parts ride one stacked [Wr | Wi] matrix so each block is
-a single f32 matmul with `precision` control (default HIGHEST: full-f32
-MXU passes; DEFAULT's bf16 passes are ~35% faster at ~1e-3 accuracy).
+a single f32 matmul with explicit `precision` (default 'highest': full
+float32; lower settings may run the products in TF32 or bf16 passes).
 """
 
 import numpy as np
@@ -37,42 +34,43 @@ __all__ = ["framed_dft", "framed_idft", "fir_framed_dft",
            "fir_framed_dft_shared", "recognize_cosine_window",
            "good_matmul_fft_length", "blocked_frame_matmul", "toeplitz_band"]
 
-_MAX_MATMUL_FFT = 1024
+#: largest fft_length for which `method='auto'` prefers the matmul DFT to
+#: XLA's FFT. On the H100 the FFT won at every length timed, 128 to 2048,
+#: and the FFT chain beat the FIR-folded matmul chain (PERF.md, bring-up
+#: findings), so 'auto' never prefers the matmul DFT
+_MAX_MATMUL_FFT = 0
 
-# HBM budget the 'auto' frame-chunking plans against, calibrated on the
-# measured v5e (16 GB) OOM boundary (ladder_chunk_r3, 2026-08-20): 768ch
-# dense worked (~11.9 GB modeled) and 896ch dense OOMed (~14.8); 1024ch
-# with 4 chunks worked. The calibration leaves ~3.5 GB of the 16 GB for
-# XLA workspace — the 0.78 ratio `_hbm_budget` applies to other chips'
-# reported capacity.
-_AUTO_CHUNK_HBM_BUDGET = 12.5 * 1024 ** 3
-_V5E_HBM_BYTES = 16 * 1024 ** 3
+#: share of the device's allocatable memory (`memory_stats()["bytes_limit"]`)
+#: the 'auto' frame-chunking plans against; the rest is left to XLA's
+#: workspace and to buffers the footprint model does not count
+_DEVICE_MEMORY_MARGIN = 0.8
+
+#: planning budget when the backend reports no memory stats (the CPU)
+_NO_STATS_BUDGET = 12.5 * 1024 ** 3
 
 
 def _hbm_budget() -> float:
-    """Plannable HBM bytes for the default device: the device's reported
-    `bytes_limit` scaled by the v5e-calibrated workspace ratio (12.5/16),
-    falling back to the calibrated v5e constant when the backend exposes
-    no memory stats (CPU/interpret runs)."""
+    """Plannable device-memory bytes for the default device: its reported
+    `bytes_limit` times `_DEVICE_MEMORY_MARGIN`, or `_NO_STATS_BUDGET`
+    when the backend exposes no memory stats."""
     try:
         stats = jax.local_devices()[0].memory_stats()
         limit = stats.get("bytes_limit", 0) if stats else 0
     except Exception:
         limit = 0
     if not limit:
-        return _AUTO_CHUNK_HBM_BUDGET
-    return limit * (_AUTO_CHUNK_HBM_BUDGET / _V5E_HBM_BYTES)
+        return _NO_STATS_BUDGET
+    return limit * _DEVICE_MEMORY_MARGIN
 
 
 def _auto_frame_chunks(batch_elems: int, num_frames: int, cols: int,
                        in_elems: int) -> int:
-    """Chunk count bounding peak HBM. Modeled footprints (f32 bytes):
-    dense = input + padded copy + power output + 1.15x the (batch, frames,
-    cols) intermediate (conv workspace margin); chunked = the same with the
-    intermediate divided by k and one extra output-sized buffer (the
-    dynamic_update_slice chain's staging copy — implied by the measured
-    1280ch failure). Returns 1 whenever the dense dispatch fits: chunking
-    costs ~6-10% (ROOFLINE.md §3.4), so it is a fallback, not a default."""
+    """Chunk count bounding peak device memory. Modeled footprints (f32
+    bytes): dense = input + padded copy + power output + 1.15x the (batch,
+    frames, cols) intermediate (conv workspace margin); chunked = the same
+    with the intermediate divided by k and one extra output-sized buffer
+    (the dynamic_update_slice chain's staging copy). Returns 1 whenever the
+    dense dispatch fits: chunking is a fallback, not a default."""
     budget = _hbm_budget()
     in_b = 4 * in_elems
     out_b = 4 * batch_elems * num_frames * (cols // 2 + 1)
@@ -115,13 +113,17 @@ def toeplitz_band(taps, out_cols: int, xp=jnp):
 
 
 def good_matmul_fft_length(n_fft: int) -> bool:
-    """True when the O(N^2) MXU DFT beats XLA's FFT for this size.
+    """True when `method='auto'` prefers the O(N^2) matmul DFT to XLA's FFT
+    for this length (`stft`, `istft`, `ShortTimeFFT`, `stft_fir_chain`).
+    Whether the matmul DFT is *valid* is a separate, geometric question
+    (real input, fft_length >= frame_length); explicit `method='matmul'`
+    asks only that.
 
     Examples:
 
     >>> from nx_signal_tpu.kernels.dft import good_matmul_fft_length
-    >>> good_matmul_fft_length(512), good_matmul_fft_length(4096)
-    (True, False)
+    >>> good_matmul_fft_length(128), good_matmul_fft_length(4096)
+    (False, False)
     """
     return n_fft <= _MAX_MATMUL_FFT
 
@@ -133,25 +135,21 @@ def blocked_frame_matmul(x, weights, *, window_length: int, stride: int,
     with gather-free framing (the C = ceil(window/stride) contiguous
     slice+reshape blocks of spectral/framing.py).
 
-    Execution strategies (all MXU; measured on v5e, scripts/
-    conv6_experiment.py + profile_chain.py, see ROOFLINE.md):
+    Execution strategies (their speed on the H100 is not measured yet):
 
-    * 'conv' (default, fastest): reshape the signal into NON-overlapping
+    * 'conv' (default): reshape the signal into NON-overlapping
       (num_frames + C - 1, stride) hop blocks — a free view — and run ONE
       `lax.conv` over the block axis with a C-tap kernel whose tap r holds
       weight rows [r*stride, (r+1)*stride). The frame matrix is never
-      materialized: the C-fold input reuse happens inside the conv
-      emitter's VMEM window instead of through an HBM frames buffer.
-      Measured +33-49% over 'materialize' and bitwise-identical on TPU.
+      materialized: the C-fold input reuse happens inside the convolution
+      instead of through a frames buffer in device memory.
 
     * 'materialize': build the (num_frames, window_length) frame matrix
-      (C-fold HBM expansion) and run one K = window_length matmul. Still
-      ~4x better than 'blocked' (the single large-K GEMM sustains
-      ~47 TF/s real vs ~12).
+      (C-fold expansion in device memory) and run one K = window_length
+      matmul.
 
     * 'blocked': C separate (num_frames, w_r) @ (w_r, out) matmuls
-      accumulating in HBM. Lowest peak memory; slowest (partial-sum
-      round-trips).
+      accumulating in device memory. Lowest peak memory.
 
     Examples:
 
@@ -194,8 +192,8 @@ def blocked_frame_matmul(x, weights, *, window_length: int, stride: int,
             blocks.append(block if w_r == stride else block[..., :w_r])
         frames = jnp.concatenate(blocks, axis=-1)
         if batch:
-            # flatten leading batch axes into M: one large GEMM tiles the
-            # MXU better than a stack of per-channel matmuls sharing the RHS
+            # flatten leading batch axes into M: one large GEMM instead of
+            # a stack of per-channel matmuls sharing the RHS
             flat = frames.reshape(-1, frames.shape[-1])
             out = jnp.matmul(flat, weights, precision=precision)
             return out.reshape(*batch, num_frames, weights.shape[-1])
@@ -247,9 +245,7 @@ def framed_dft(x, window, *, stride: int, n_fft: int, onesided: bool = False,
     accuracy) to `fft(as_windowed(x, frame, stride) * window, n_fft)`.
 
     `output='power'` returns |z|^2 real directly from the stacked [Re | Im]
-    matmul result (re^2 + im^2) without assembling complex values — the
-    epilogue fuses into the matmul's output pass (measured ~8% faster than
-    complex + abs()**2 on v5e).
+    matmul result (re^2 + im^2) without assembling complex values.
 
     The signal must already be padded (padding modes are handled by the
     caller, spectral/stft.py).
@@ -346,7 +342,7 @@ def _idft_weights(window, frame_length: int, n_fft: int, onesided: bool, dtype):
 def framed_idft(z, window, *, n_fft: int, onesided: bool = False,
                 precision="highest"):
     """Inverse of `framed_dft` fused with the synthesis-window multiply:
-    (..., M, bins) spectrum -> windowed time frames, as MXU matmuls.
+    (..., M, bins) spectrum -> windowed time frames, as matmuls.
 
     Full-spectrum input returns complex frames (= ifft(z) * window);
     onesided input returns real frames (irfft reconstruction). The caller
@@ -425,11 +421,11 @@ def fir_dft_fold_weights(taps, window, n_fft: int, onesided: bool,
 def _fir_framed_dft_power_nopad(x, weights, *, ext, stride, pad_left,
                                 num_frames, bins, precision):
     """Copy-free edge handling for the fused power chain: instead of
-    materializing the padded signal copy xp (an ~8 B/sample HBM round
+    materializing the padded signal copy xp (an ~8 B/sample memory round
     trip), shift the folded weight rows down by s = (-pad_left) % stride so
     the left context becomes WHOLE zero hop-blocks, then express both edge
-    paddings as the conv's own spatial padding config — the TPU conv
-    emitter generates boundary zeros internally, no input copy exists.
+    paddings as the conv's own spatial padding config — the convolution
+    generates boundary zeros internally, no input copy exists.
     Requires the signal length to be a multiple of the hop and the shifted
     weights to still fit the same tap count (true for the bench geometry:
     766+1 <= 6*128). Returns None when the geometry does not apply (caller
@@ -464,8 +460,7 @@ def _fir_framed_dft_power_nopad(x, weights, *, ext, stride, pad_left,
 
 def fir_framed_dft(x, taps, window, *, stride: int, n_fft: int,
                    onesided: bool = False, precision="highest",
-                   output: str = "complex", frame_chunks=1, edge: str = "pad",
-                   kernel: str = "auto"):
+                   output: str = "complex", frame_chunks=1, edge: str = "pad"):
     """FIR filtering fused INTO the framed DFT: the spectrum of
     convolve(x, taps, 'same') computed as one blocked matmul chain, with the
     Toeplitz filter matrix folded into the DFT weights at build time:
@@ -475,7 +470,7 @@ def fir_framed_dft(x, taps, window, *, stride: int, n_fft: int,
     where frames_ext are (frame_length + K - 1)-wide windows of the signal
     (the extra K-1 samples supply the convolution context) and
     T[t, j] = taps[j + K - 1 - t] is the banded 'same'-mode Toeplitz. The
-    filtered time signal is never materialized — one HBM read of x per
+    filtered time signal is never materialized — one read of x per
     reshape-block, one write of z. This is the fast path of the
     STFT+FIR north-star chain when the filtered signal itself is not needed.
 
@@ -484,35 +479,21 @@ def fir_framed_dft(x, taps, window, *, stride: int, n_fft: int,
     output buffer via an in-place dynamic_update_slice. The (.., frames,
     2*bins) conv intermediate — which XLA materializes ahead of the power
     epilogue — then only ever exists one chunk at a time, cutting its peak
-    HBM footprint by the chunk count (the ≥896-channel memory wall of
-    ROOFLINE.md §3.3). Total HBM traffic is unchanged; results match the
-    unchunked path (same per-frame contractions). `frame_chunks='auto'`
-    picks the smallest count whose peak footprint fits the HBM budget —
-    1 (no overhead) whenever the dense dispatch fits, so large-batch calls
-    degrade to chunking instead of OOM (measured: 1024ch x 10 s @ 48 kHz
-    runs chunked at ~94% of the 768ch dense rate; dense OOMs at ≥896ch).
+    memory footprint by the chunk count. Total memory traffic is
+    unchanged; results match the unchunked path (same per-frame
+    contractions). `frame_chunks='auto'` picks the smallest count whose
+    modeled peak fits `_DEVICE_MEMORY_MARGIN` of the device's allocatable
+    memory — 1 (no overhead) whenever the dense dispatch fits, so
+    large-batch calls degrade to chunking instead of running out of
+    memory.
 
     `edge='conv'` (power output, unchunked) eliminates the padded input
     COPY by folding the 'same' left context into the conv's own spatial
     padding (`_fir_framed_dft_power_nopad`): the weight rows shift by
     (-pad_left) % stride so both edges become whole zero hop-blocks the
-    conv emitter generates internally — saving an ~8 B/sample HBM round
+    convolution generates internally — saving an ~8 B/sample memory round
     trip when the geometry applies (hop | signal length and the shifted
     weights keep their tap count); falls back to `edge='pad'` otherwise.
-
-    `kernel` selects the implementation of the one-sided real power
-    chain: 'auto'/'xla' run the conv-of-blocks matmul path (production —
-    measured faster than every Pallas schedule tried at every channel
-    count when compared within one process: 23.3 vs 29.4 ms at 128ch,
-    58.2 vs 73.2 at 512ch on v5e, ROOFLINE.md §6); 'pallas' forces the
-    silicon-verified fused Pallas kernel (kernels/pallas_dft.py — raises
-    when output/'onesided'/alignment make it ineligible), kept as the
-    platform for schedule experiments; 'pallas_shared' forces the
-    shared hop-block partial-DFT kernel (2x fewer MXU FLOPs for
-    cosine-sum windows with frame_length == n_fft and stride | n_fft —
-    the ROOFLINE.md §4 algorithm with its twiddle/window stages as
-    in-VMEM epilogues), raising when the window is not a recognized
-    cosine-sum family.
 
     Examples:
 
@@ -544,48 +525,6 @@ def fir_framed_dft(x, taps, window, *, stride: int, n_fft: int,
         )
     num_frames = (length - frame_length) // stride + 1
     bins = n_fft // 2 + 1 if onesided else n_fft
-
-    if kernel not in ("auto", "xla", "pallas", "pallas_shared"):
-        raise ValueError("kernel must be 'auto', 'xla', 'pallas' or "
-                         f"'pallas_shared', got {kernel!r}")
-    if kernel != "xla":
-        real_in = not jnp.issubdtype(x.dtype, jnp.complexfloating)
-        eligible = (output == "power" and onesided and not traced and real_in
-                    and stride % 128 == 0 and edge == "pad"
-                    and frame_chunks in (1, "auto"))
-        if kernel == "pallas" and not eligible:
-            raise ValueError(
-                "kernel='pallas' requires output='power', onesided=True, "
-                "real input, concrete taps/window, edge='pad', "
-                "frame_chunks in (1, 'auto') and stride % 128 == 0")
-        if kernel == "pallas":
-            from nx_signal_tpu.kernels.pallas_dft import (
-                fir_framed_dft_power_pallas)
-            return fir_framed_dft_power_pallas(
-                x, taps, window_arr, stride=stride, n_fft=n_fft,
-                onesided=True, precision=precision)
-        if kernel == "pallas_shared":
-            if not eligible:
-                raise ValueError(
-                    "kernel='pallas_shared' requires output='power', "
-                    "onesided=True, real input, concrete taps/window, "
-                    "edge='pad', frame_chunks in (1, 'auto') and "
-                    "stride % 128 == 0")
-            coeffs = (recognize_cosine_window(window_arr, n_fft)
-                      if (frame_length == n_fft and n_fft % stride == 0
-                          and n_fft % 2 == 0)
-                      else None)
-            if coeffs is None:
-                raise ValueError(
-                    "kernel='pallas_shared' additionally requires "
-                    "frame_length == n_fft, stride | n_fft, even n_fft "
-                    "and a recognized cosine-sum window "
-                    "(see recognize_cosine_window)")
-            from nx_signal_tpu.kernels.pallas_dft import (
-                fir_framed_dft_power_shared_pallas)
-            return fir_framed_dft_power_shared_pallas(
-                x, taps, stride=stride, n_fft=n_fft, window_coeffs=coeffs,
-                precision=precision)
 
     ext = frame_length + k - 1
     weights = fir_dft_fold_weights(taps, window_arr, n_fft, onesided,
@@ -730,7 +669,7 @@ def fir_framed_dft_shared(x, taps, *, stride: int, n_fft: int,
     conjugation). The FIR is folded into E by the banded Toeplitz matrix
     exactly as in `fir_framed_dft`, so per input sample the matmul work is
     2*(stride + K - 1)*(2*bins)/stride FLOP instead of
-    2*(n_fft + K - 1)*(2*bins)/stride — a J/(1 + (K-1)/stride)-fold MXU
+    2*(n_fft + K - 1)*(2*bins)/stride — a J/(1 + (K-1)/stride)-fold matmul
     reduction (2.0x for the 512/128/255-tap chain). Equal to
     `fir_framed_dft` up to f32 association (NOT bitwise — different
     summation order).

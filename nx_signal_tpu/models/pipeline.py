@@ -22,6 +22,11 @@ from nx_signal_tpu.utils.dtypes import DEFAULT_FLOAT
 __all__ = ["SpectrogramPipeline", "LogMelFrontend", "FIRFilterChain",
            "stft_fir_chain", "WidebandReceiver", "channelize_power_stream"]
 
+#: matmul/conv precision of `stft_fir_chain` by default, and of `bench.py`:
+#: the cheapest setting whose chain stays inside the 1e-4 gate against a
+#: float32 reference on the H100 (PERF.md, bring-up findings)
+CHAIN_PRECISION = "highest"
+
 
 @dataclass(frozen=True)
 class SpectrogramPipeline:
@@ -52,7 +57,7 @@ class SpectrogramPipeline:
 class LogMelFrontend:
     """Whisper-style log-mel front end: STFT -> |z|^2 -> mel matmul -> log10
     with dynamic-range floor (reference: nx_signal.ex:486-513). The mel
-    projection is precomputed and applied as a single MXU matmul."""
+    projection is precomputed and applied as a single matmul."""
 
     frame_length: int = 400
     hop_length: int = 160
@@ -72,7 +77,8 @@ class LogMelFrontend:
         filters = mel_filters(self.fft_length, self.mel_bins, self.sampling_rate)
         freq_size = self.fft_length // 2
         power = jnp.abs(z).astype(DEFAULT_FLOAT) ** 2
-        mel = jnp.matmul(power[..., :freq_size], filters[:, :freq_size].T)
+        mel = jnp.matmul(power[..., :freq_size], filters[:, :freq_size].T,
+                         precision="highest")
         log_spec = jnp.log10(jnp.clip(mel, 1e-10, None))
         log_spec = jnp.maximum(log_spec, jnp.max(log_spec) - 8.0)
         return (log_spec + 4.0) / 4.0
@@ -105,21 +111,23 @@ class FIRFilterChain:
 def stft_fir_chain(x, taps, window, *, fft_length: int, overlap_length: int,
                    sampling_rate: float = 16000.0, fir_method: str = "direct",
                    onesided: bool = True, return_filtered: bool = True,
-                   precision: str = "highest", frame_chunks=1):
+                   precision=CHAIN_PRECISION, frame_chunks=1):
     """The north-star benchmark chain (BASELINE.json): FIR low-pass then
     Hann STFT -> power spectrogram, returning (filtered, power) — or power
-    alone with `return_filtered=False`, which takes the fully-fused
+    alone with `return_filtered=False`, which, where `good_matmul_fft_length`
+    prefers the matmul DFT, takes the fully-fused
     kernels/dft.py:fir_framed_dft path (the Toeplitz filter matrix is folded
     into the DFT weights; the filtered signal is never materialized).
 
-    Defaults are the TPU-fast configuration: direct FIR (the Toeplitz-matmul
-    MXU path — measured faster than FFT overlap-add for couple-hundred-tap
-    filters on TPU) and a one-sided power spectrum (real input). `precision`
-    sets the MXU matmul precision of the DFT kernels (see spectral.stft).
-    `frame_chunks > 1` (fused power path only) bounds the peak HBM footprint
-    of the conv intermediate by chunking the frame axis — the knob that
-    lifts the chain past the single-dispatch ~896-channel memory wall
-    (kernels/dft.py:fir_framed_dft, ROOFLINE.md §3.3)."""
+    Defaults: direct FIR (the Toeplitz-matmul path; on the H100 the chain
+    measured slower with it than with `fir_method='oa'`, PERF.md) and a
+    one-sided power spectrum (real input). `precision` sets the matmul/conv precision of
+    the DFT kernels (see spectral.stft); the default `CHAIN_PRECISION` is
+    the cheapest setting that passes the 1e-4 gate on the H100. The DFT
+    runs as a matmul where `good_matmul_fft_length` prefers it, as XLA's
+    FFT otherwise. `frame_chunks > 1` (fused power path only) bounds the
+    peak memory of the conv intermediate by chunking the frame axis
+    (kernels/dft.py:fir_framed_dft)."""
     from nx_signal_tpu.ops.convolution import convolve
     from nx_signal_tpu.kernels.dft import (
         fir_framed_dft, framed_dft, good_matmul_fft_length)

@@ -7,13 +7,13 @@ convolver the reference left unbuilt (its test block is commented out,
 convolutions_test.exs:633-654) — it is both the fast path for long FIR
 filtering and the time-block distribution seam (see nx_signal_tpu.parallel).
 
-TPU-first notes
----------------
-* Direct convolution lowers to `lax.conv_general_dilated`, which XLA maps
-  onto the MXU. Complex inputs are decomposed into real convolutions
-  (TPU convs are real): (a+bi)*(c+di) = (ac - bd) + i(ad + bc).
+Design notes
+------------
+* Direct convolution lowers to `lax.conv_general_dilated` (1-D FIR to a
+  blocked Toeplitz matmul). Complex inputs are decomposed into real
+  convolutions: (a+bi)*(c+di) = (ac - bd) + i(ad + bc).
 * FFT convolution pads each conv axis from the exact N+K-1 up to the next
-  power-of-two length (XLA's TPU FFT lowers other sizes to a dense O(N^2) DFT matmul) and slices back — results are
+  power-of-two length and slices back — results are
   identical, never circular. Real inputs take the rfft half-spectrum path:
   half the FFT flops and HBM traffic.
 * Overlap-add framing/summation reuses the deterministic fold from
@@ -48,7 +48,7 @@ def _check_mode_method(mode, method):
 
 
 def convolve(in1, in2, *, mode="full", method="direct"):
-    """Convolution of two tensors; `method` 'direct' (MXU conv) or 'fft'.
+    """Convolution of two tensors; `method` 'direct' (conv/matmul) or 'fft'.
 
     Modes (reference: convolution.ex:24-28): 'full' -> N+K-1 samples,
     'same' -> center N samples, 'valid' -> center N-K+1 samples.
@@ -94,7 +94,7 @@ def convolve2d(in1, in2, *, mode="full", boundary="fill", fillvalue=0):
     scipy.signal.convolve2d semantics: `boundary` is 'fill' (pad with
     `fillvalue`), 'wrap' (circular), or 'symm' (symmetric reflection
     including the edge sample). Implemented as boundary padding by the full
-    kernel overhang followed by a valid lax.conv (MXU) and the scipy mode
+    kernel overhang followed by a valid lax.conv and the scipy mode
     slices. Not in the reference (its convolve covers only zero boundaries,
     convolution.ex:95-211).
 
@@ -223,7 +223,8 @@ def _valid_swap(in1, in2):
 
 
 def _conv_real(volume, kernel, padding):
-    """Real N-D convolution kernel: NC + spatial layout, single feature."""
+    """Real N-D convolution kernel: NC + spatial layout, single feature.
+    Full float32 products: an accelerator's default may run them in TF32."""
     rank = volume.ndim
     dn = lax.conv_dimension_numbers(
         (1, 1) + volume.shape, (1, 1) + kernel.shape,
@@ -235,26 +236,26 @@ def _conv_real(volume, kernel, padding):
         window_strides=(1,) * rank,
         padding=padding,
         dimension_numbers=dn,
+        precision="highest",
     )
     return out.reshape(out.shape[2:])
 
 
 def _fir_block_size(k: int) -> int:
     """Output-block width for the Toeplitz-matmul FIR path: >= K so the
-    flop waste factor (B+K-1)/B stays <= 2, MXU-aligned."""
+    flop waste factor (B+K-1)/B stays <= 2, a multiple of 128."""
     return max(512, -(-k // 128) * 128)
 
 
 def fir_convolve_1d(x, taps, mode="full", *, origin: int = 0):
     """1-D convolution over the last axis as a blocked Toeplitz matmul —
-    the MXU-native direct FIR path.
+    the direct FIR path.
 
     y_full[n] = sum_m taps[m] x[n-m] evaluated as (frames @ W): frames are
     gather-free (B+K-1)-wide windows at stride B of the zero-padded signal,
     W[t, j] = taps[j+K-1-t] banded Toeplitz. This replaces
-    lax.conv_general_dilated for long-1-D kernels, which XLA executes ~25x
-    slower than the MXU matmul on TPU (measured: 21 vs 500+ Msamples/s for
-    255 taps).
+    lax.conv_general_dilated for long 1-D kernels (its speed against the
+    FFT paths on the H100 is not measured yet).
 
     `origin` aligns the block grid to a global full-conv index: output
     sample f lands in matmul column (f + origin) % B regardless of local
@@ -293,6 +294,7 @@ def fir_convolve_1d(x, taps, mode="full", *, origin: int = 0):
     y = blocked_frame_matmul(
         xp.astype(out_dtype), weights.astype(out_dtype),
         window_length=block + k - 1, stride=block, num_frames=num_frames,
+        precision="highest",
     )
     y = y.reshape(*batch, num_frames * block)[..., shift : shift + full_len]
 
@@ -618,11 +620,10 @@ def deconvolve(signal, divisor):
 
 def choose_conv_method(in1, in2, mode: str = "full"):
     """Pick 'direct' or 'fft' for `convolve` by operand size —
-    scipy.signal.choose_conv_method's contract with a TPU-calibrated rule:
-    the MXU direct path (Toeplitz matmul / lax.conv) wins far past scipy's
-    CPU crossover (measured ~25x over lax.conv for long-1D FIR,
-    kernels/dft.py), so the FFT method is chosen only when the smaller
-    operand is large in every convolved axis. Integer inputs always use
+    scipy.signal.choose_conv_method's contract with a size rule: the
+    direct path (Toeplitz matmul / lax.conv) is chosen until the smaller
+    operand is large (this crossover predates the H100 and is not
+    measured there yet). Integer inputs always use
     'direct' (exact, like scipy).
 
     Examples:
@@ -641,8 +642,8 @@ def choose_conv_method(in1, in2, mode: str = "full"):
     small = min(
         (np_prod_positive(in1.shape), np_prod_positive(in2.shape))
     )
-    # TPU crossover: the direct MXU path amortizes until the smaller
-    # operand carries ~4k taps (vs scipy's low hundreds on CPU).
+    # crossover: the direct path until the smaller operand carries ~4k
+    # taps (vs scipy's low hundreds on CPU)
     return "fft" if small >= 4096 else "direct"
 
 

@@ -1,15 +1,15 @@
 """Chirp-Z transform and zoom FFT — scipy.signal.czt / zoom_fft semantics.
 
 New relative to the reference (nx_signal stops at plain FFT; SURVEY.md
-§2.4). TPU-first design: two dispatch paths, mirroring kernels/dft.py —
+§2.4). Design: two dispatch paths, mirroring kernels/dft.py —
 
 - small n*m: the transform IS a matmul, X = (x * a^-n) @ W with
-  W[n, k] = w^(nk); one MXU pass, no FFT at all (the same regime where the
+  W[n, k] = w^(nk); one matmul, no FFT at all (the same regime where the
   framed-DFT matmul beats XLA's FFT ~3x).
 - large n*m: Bluestein's algorithm — the quadratic-phase factorization
   nk = (n^2 + k^2 - (k-n)^2)/2 turns the transform into one linear
   convolution, evaluated with power-of-two FFTs (utils/shapes.py
-  fft_fast_length; XLA's TPU FFT lowers non-pow-2 lengths to dense O(N^2)
+  fft_fast_length; some FFT backends lower non-pow-2 lengths to dense O(N^2)
   matmuls, so the pad is load-bearing).
 
 Chirp phase tables are built host-side in f64 when the transform
@@ -29,7 +29,7 @@ from nx_signal_tpu.utils.shapes import fft_fast_length
 
 __all__ = ["czt", "zoom_fft", "czt_points", "CZT", "ZoomFFT"]
 
-_MAX_MATMUL_NM = 1 << 21  # n*m above this -> Bluestein (empirical MXU regime)
+_MAX_MATMUL_NM = 1 << 21  # n*m above this -> Bluestein (a crossover not measured on the H100)
 
 _CDTYPE = np.complex64 if DEFAULT_FLOAT == jnp.float32 else np.complex128
 
@@ -108,7 +108,7 @@ class _CztPlan:
         a_chirp = _chirp_powers(self.a, -n_idx)  # a^{-n}
         self._matmul = self.n * self.m <= _MAX_MATMUL_NM
         if self._matmul:
-            # MXU path: one (.., n) @ (n, m) complex matmul
+            # matmul path: one (.., n) @ (n, m) complex matmul
             nk = n_idx[:, None] * np.arange(self.m, dtype=np.float64)[None, :]
             self._weights = jnp.asarray(
                 (a_chirp[:, None] * _chirp_powers(self.w, nk)).astype(_CDTYPE)
@@ -177,7 +177,7 @@ def czt_points(m: int, w=None, a=1.0 + 0.0j):
 
 class CZT:
     """Callable chirp-Z transform of fixed length — scipy.signal.CZT
-    semantics. Precomputes the chirp weight tables (the MXU matmul weights
+    semantics. Precomputes the chirp weight tables (the matmul weights
     or the Bluestein FFT tables) once at construction, so repeated
     transforms of same-length signals skip all host-side f64 table math.
     Not in the reference (nx_signal stops at plain FFT, SURVEY.md §2.4).

@@ -5,7 +5,7 @@ Reference semantics: lib/nx_signal/filters.ex — `median/2` (:17-55),
 
 `firwin` is design-time math on tiny tensors (scipy.signal.firwin parity is
 what matters; reference tests pin scipy values at atol 1e-5). `median` and
-`wiener` are sliding-window ops; `wiener` rides the MXU via direct
+`wiener` are sliding-window ops; `wiener` runs as direct
 correlation with a ones kernel.
 """
 
@@ -67,7 +67,7 @@ def wiener(t, *, kernel_size=3, noise=None):
     output select(l_var < noise, l_mean, l_mean + (t - l_mean)(1 - noise/l_var)).
 
     Accumulates in float64 when x64 is enabled (the reference computes in f64,
-    filters.ex:107-109); on TPU (no f64) it runs in float32 — document'd
+    filters.ex:107-109); without x64 it runs in float32 — document'd
     precision difference, wiener is not in the hot chain.
 
     Examples:
@@ -170,7 +170,8 @@ def firwin(num_taps: int, cutoff, *, window="hamming", pass_zero: bool = True,
             scale_freq = 1.0
         else:
             scale_freq = (cutoffs[0] + cutoffs[1]) / 2.0
-        factor = jnp.abs(jnp.dot(h, jnp.cos(alpha * (math.pi * scale_freq))))
+        factor = jnp.abs(jnp.dot(h, jnp.cos(alpha * (math.pi * scale_freq)),
+                                 precision="highest"))
         h = h / factor
     return h
 
@@ -236,7 +237,7 @@ def firwin_2d(hsize, window, *, fc=None, sampling_rate: float = 2.0,
 
 def _analysis_float():
     """f64 when x64 is on (design-time analysis wants full precision —
-    responses span 100+ dB), DEFAULT_FLOAT otherwise (TPU runtime)."""
+    responses span 100+ dB), DEFAULT_FLOAT otherwise (the device runtime)."""
     return jnp.float64 if jax.config.jax_enable_x64 else DEFAULT_FLOAT
 
 
@@ -248,7 +249,7 @@ def _freq_grid(n_freqs, sampling_rate, whole):
 
 
 def _polyval_exp(coefs, w):
-    """sum_n c[n] e^{-iwn} as one MXU matmul: (n_freqs, n_taps) basis."""
+    """sum_n c[n] e^{-iwn} as one matmul: (n_freqs, n_taps) basis."""
     coefs = jnp.asarray(coefs)
     n = jnp.arange(coefs.shape[-1], dtype=w.dtype)
     basis = jnp.exp(-1j * w[:, None].astype(w.dtype) * n[None, :])
@@ -262,7 +263,7 @@ def freqz(taps, a=None, *, n_freqs: int = 512, sampling_rate: float = 2.0,
     Returns (frequencies_hz, complex_response) — scipy.signal.freqz
     semantics; `a=None` is the FIR case. Not in the reference; provided
     for filter-design verification (used with firwin and the IIR designs).
-    Evaluation is a basis matmul (MXU) rather than per-point Horner.
+    Evaluation is a basis matmul rather than per-point Horner.
 
     Examples:
 
@@ -516,8 +517,8 @@ def savgol_filter(x, window_length: int, polyorder: int, *, deriv: int = 0,
     """Savitzky-Golay smoothing/differentiation filter —
     scipy.signal.savgol_filter semantics (window_length must be odd here).
 
-    TPU mapping: the sliding polynomial fit is a static FIR, applied with
-    the blocked-Toeplitz MXU matmul (ops/convolution.py: fir_convolve_1d);
+    Mapping: the sliding polynomial fit is a static FIR, applied with
+    the blocked-Toeplitz matmul (ops/convolution.py: fir_convolve_1d);
     mode='interp' edge polyfits collapse into two host-precomputed
     (halflen, window_length) matrices, so the whole op is three matmuls.
     Not in the reference.
@@ -626,7 +627,7 @@ def order_filter(a, domain, rank: int):
     nonzero entries of `domain` (all dimensions odd, window centered,
     edges zero-padded) and output the rank-th smallest.
 
-    TPU-native form: one shifted static slice per selected domain position
+    Form: one shifted static slice per selected domain position
     stacked on a new axis, then a single vectorized sort — no gathers, and
     the sort length is the (static) number of selected positions. Not in
     the reference (its `median` is the anchored-window variant above).

@@ -6,7 +6,7 @@ the contract. The fixed-shape encoding follows the reference's idiom
 (peak_finding.ex:340-346): a -1-padded index vector plus a valid count,
 so every output has a static shape under jit.
 
-TPU-first design — scipy's implementation is three sequential C loops
+Design — scipy's implementation is three sequential C loops
 (per-peak leftward/rightward scans); those do not vectorize. Here:
 
 - detection: plateau-aware local maxima from sign-of-diff forward fills —

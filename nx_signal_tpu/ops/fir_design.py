@@ -13,7 +13,7 @@ scipy.signal semantics:
 All of it is design-time math on tiny tensors: computed in float64 numpy on
 host (so results fold into jit traces as constants) and returned as device
 arrays in the package default dtype. Accuracy is what matters here, not
-device throughput — the designed taps then feed the MXU FIR paths
+device throughput — the designed taps then feed the device FIR paths
 (ops/convolution.py: fir_convolve_1d).
 """
 

@@ -5,7 +5,7 @@ median/wiener/firwin; it has no IIR application at all), with
 scipy.signal semantics as the contract (the same oracle the reference pins
 its FIR tests to, test/nx_signal/filters_test.exs:246).
 
-TPU-native design: a sequential per-sample loop is the worst possible shape
+Design: a sequential per-sample loop is the worst possible shape
 for XLA (serial dependency, no vectorization). Instead the recurrence
 
     y[n] = v[n] - a_1 y[n-1] - ... - a_N y[n-N]
@@ -177,7 +177,7 @@ def lfilter(b, a, x, axis=-1, zi=None):
     convention for `zi`/`zf`). Returns y, or (y, zf) when zi is given.
 
     New relative to the reference (no IIR in nx_signal; SURVEY.md §2.5).
-    TPU path: causal FIR shift-add + log-depth associative-scan recurrence
+    Device path: causal FIR shift-add + log-depth associative-scan recurrence
     (see module docstring). Orders above ~8 pay O(N^2) state-map cost per
     sample; prefer `sosfilt` (cascaded biquads) for high-order filters, as
     scipy also recommends.
@@ -356,7 +356,7 @@ def filtfilt(b, a, x, axis=-1, padtype="odd", padlen=None):
 def sosfilt(sos, x, axis=-1, zi=None):
     """Filter with cascaded second-order sections — scipy.signal.sosfilt
     semantics (zi shape (n_sections, ..., 2) in DF2T convention). Returns y
-    or (y, zf). The TPU-recommended IIR path: each biquad is a 2x2
+    or (y, zf). The recommended IIR path: each biquad is a 2x2
     associative-scan recurrence (log-depth, numerically robust at any
     order via cascading). New relative to the reference (no IIR).
 

@@ -7,7 +7,7 @@ Greenfield relative to the reference (nx_signal has only FIR design,
 is scipy.signal semantics, the same oracle the reference pins firwin to
 (filters_test.exs:246). Design is host-side f64 numpy — it runs once, on
 tiny arrays, at Python level (the reference's deftransform level); only the
-filter APPLICATION (ops/iir.py) runs on the TPU.
+filter APPLICATION (ops/iir.py) runs on the device.
 
 The elliptic prototype uses the Landen-transform formulation of the Jacobi
 elliptic functions (cd/sn and inverse sn), which needs no external special-
@@ -747,7 +747,7 @@ def butter(n, wn, btype="lowpass", analog=False, output="ba", fs=None):
     >>> np.round(np.asarray(a), 4)
     array([ 1.    , -0.9428,  0.3333])
 
-    ``output='sos'`` returns cascaded biquads (the TPU-recommended form,
+    ``output='sos'`` returns cascaded biquads (the recommended form,
     run with :func:`nx_signal_tpu.ops.iir.sosfilt`):
 
     >>> butter(4, 0.125, output="sos").shape

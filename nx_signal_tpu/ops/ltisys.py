@@ -732,7 +732,7 @@ def dlsim(system, u, t=None, x0=None):
     `system` is (num, den, dt), (z, p, k, dt), or (A, B, C, D, dt); `u` is
     (n_steps,) or (n_steps, n_inputs). Returns (tout, yout, xout) for
     state-space input, (tout, yout) otherwise. The recursion runs as a
-    jax.lax.scan (TPU-compiled) over the steps.
+    jax.lax.scan (compiled for the device) over the steps.
 
     Examples:
 

@@ -2,10 +2,10 @@
 resample_poly semantics) — new components beyond the reference (BASELINE
 configs 4-5: 48 kHz -> 16 kHz resample, wideband polyphase channelizer).
 
-TPU-first design: no zero-stuffing ever happens. `upfirdn` is evaluated in
+Design: no zero-stuffing ever happens. `upfirdn` is evaluated in
 polyphase form — for output residue class r (mod up), the needed input
 windows form a stride-`down` frame matrix (built with the gather-free
-slice/reshape framing) and the phase filter is applied as a single MXU
+slice/reshape framing) and the phase filter is applied as a single
 matvec. The polyphase channelizer is frames-reshape + weighted sum + one
 batched FFT across channels.
 """
@@ -53,7 +53,7 @@ def _upfirdn_phase_outputs(ext, bank, up: int, down: int, *, n_offset: int,
     T-1 samples of left context — zeros at the stream edge, halo samples in
     a sharded block). The local index ℓ = n - n_offset; outputs are grouped
     by ℓ mod up, each group one strided-frame matrix times a phase filter
-    (MXU matvec); no stuffed zeros are ever materialized or multiplied.
+    (a matvec); no stuffed zeros are ever materialized or multiplied.
 
     This same core serves the single-device `upfirdn` (n_offset=0) and the
     per-device body of parallel.sharded_upfirdn / sharded_resample_poly
@@ -64,16 +64,12 @@ def _upfirdn_phase_outputs(ext, bank, up: int, down: int, *, n_offset: int,
     of R consecutive outputs per frame row (R a multiple of `up` near
     128, not the minimal R = up). Column r of the banded weight matrix
     holds phase filter p_r at row offset o_r - o_min (o_r = the output's
-    window start), and the frame stride becomes (R//up)*down. The tile
-    matters enormously for decimation: at R = up the hop blocks are only
-    `down` samples wide (3 of 128 lanes at down=3 — ~2% occupancy,
-    measured 2.1 Gs/s for BASELINE config 3), while the R~128 tile makes
-    the stride lane-aligned and puts the whole resampler on full-width
-    MXU rows at the cost of a mostly-zero banded weight (FLOPs are
-    cheap, lanes are not — the §3 conv-of-blocks lesson applied to
-    resampling; measured 2.6x on the resampler alone and 2.45x on the
-    full config-3 chain, ROOFLINE.md §7.3). Falls back to R = up when
-    the banded weight would be huge (very large `down`).
+    window start), and the frame stride becomes (R//up)*down. At R = up
+    the hop blocks are only `down` samples wide, which leaves the matmul
+    almost empty for decimation; the R~128 tile gives it full-width rows
+    at the cost of a mostly-zero banded weight (its speed on the H100 is
+    not measured yet). Falls back to R = up when the banded weight would
+    be huge (very large `down`).
     No frame matrix is ever materialized (the previous as_windowed +
     matvec form expanded the input T/down-fold: 14 GB for 64ch x 60 s @
     48 kHz with a 61-tap phase filter, found by scripts/configs_bench.py)."""
@@ -114,11 +110,10 @@ def _upfirdn_phase_outputs(ext, bank, up: int, down: int, *, n_offset: int,
             w_np[s:s + t_taps, r] = bank_np[phases[r]]
         w = jnp.asarray(w_np)
     # conv-of-blocks when the block-axis kernel stays short; the C-tap
-    # conv reads each input sample from its VMEM window (no frame
+    # conv reuses each input sample inside the convolution (no frame
     # materialization). Long kernels (small `down`) and complex dtypes
-    # take the materialized-frames matmul instead (lax.conv measured ~25x
-    # slower for long stride-1 kernels on TPU, and TPU conv lowering is
-    # real-only).
+    # take the materialized-frames matmul instead (lax.conv is real-only
+    # here).
     c_blocks = -(-window_length // stride)
     strategy = ("conv" if c_blocks <= 32
                 and not is_complex_dtype(ext.dtype)
@@ -140,7 +135,7 @@ def upfirdn(h, x, up: int = 1, down: int = 1):
     Polyphase evaluation: out[n] = sum_t H[p_n, t] * x[q_n - t] with
     p_n = (n*down) % up, q_n = (n*down) // up, H[p, t] = h[p + t*up].
     Outputs are grouped by n mod up so each group is one strided-frame
-    matrix times a phase filter (MXU matvec); no stuffed zeros are ever
+    matrix times a phase filter (a matvec); no stuffed zeros are ever
     materialized or multiplied.
 
     Examples:
@@ -254,37 +249,32 @@ def pfb_analyze(x, n_channels: int, *, taps_per_channel: int = 8, window=("kaise
 
     Execution strategies (all mathematically identical; the PFB *is* a
     framed DFT with the wrapped phase e^(-2i*pi*k*n/m), so it rides the
-    chain's MXU machinery):
+    chain's matmul machinery):
 
     * 'matmul' (real input): ONE conv-of-blocks matmul against the
       aliased-DFT weight matrix W[n, k] = proto[n] * e^(-2i*pi*k*n/m)
       of shape (m*taps_per_channel, 2*m) — zero frame materialization,
-      the `blocked_frame_matmul` strategy='conv' path (ROOFLINE.md §7).
+      the `blocked_frame_matmul` strategy='conv' path.
     * 'factored' (real input): polyphase sum first as taps_per_channel
-      shifted multiply-adds over the free (blocks, m) reshape view (VPU,
-      no frames buffer), then one (T, m) @ (m, 2*m) DFT matmul — the
+      shifted multiply-adds over the free (blocks, m) reshape view (no
+      frames buffer), then one (T, m) @ (m, 2*m) DFT matmul — the
       FLOP-minimal form, preferred for large m where the combined
-      matmul's K = m*taps_per_channel wastes taps_per_channel-fold MXU
+      matmul's K = m*taps_per_channel costs taps_per_channel-fold more
       work.
     * 'einsum': the reference formulation (as_windowed frames + weighted
-      sum + batched FFT) — an (taps_per_channel)-fold HBM frame expansion;
+      sum + batched FFT) — a (taps_per_channel)-fold frame expansion in
+      device memory;
       kept for complex input and as the oracle.
-    * 'auto': 'factored' for real input with m >= 64 (lane-aligned
-      channel axis), 'matmul' for smaller real filterbanks (its
-      K = m*taps_per_channel keeps the contraction MXU-sized), 'einsum'
-      for complex input.
+    * 'auto': 'factored' for real input with m >= 64, 'matmul' for
+      smaller real filterbanks (its K = m*taps_per_channel keeps the
+      contraction large), 'einsum' for complex input. This rule predates
+      the H100 and is not measured there yet.
 
-    Dtype note: the MXU strategies ('matmul', 'factored') compute in
+    Dtype note: the matmul strategies ('matmul', 'factored') compute in
     float32 (stacked-real weight layout). 'auto' therefore routes float64
     input to 'einsum', which preserves the promoted dtype; requesting an
-    MXU strategy explicitly on float64 input downcasts to f32 and emits a
+    matmul strategy explicitly on float64 input downcasts to f32 and emits a
     UserWarning.
-
-    Silicon (v5e, one process, scripts/pfb_bench_r4.py, ROOFLINE.md
-    §7.2): 64-band BASELINE config einsum 82-84 ms -> factored 38.8
-    (2.1x, matmul 40.5-42.4); 1024-band einsum 45.6 -> factored
-    34.1-37.4 (matmul loses there — the K=8192 combined matmul wastes
-    8x MXU work exactly as the FLOP count predicts).
 
     Examples:
 
@@ -322,7 +312,7 @@ def pfb_analyze(x, n_channels: int, *, taps_per_channel: int = 8, window=("kaise
                          f"'einsum', got {strategy!r}")
     if strategy == "auto":
         if complex_in or dtype == jnp.float64:
-            # einsum preserves the promoted dtype; the MXU strategies
+            # einsum preserves the promoted dtype; the matmul strategies
             # compute in f32 (stacked-real weights) — keep f64 callers at
             # f64 accuracy unless they opt in explicitly
             strategy = "einsum"
@@ -333,13 +323,13 @@ def pfb_analyze(x, n_channels: int, *, taps_per_channel: int = 8, window=("kaise
     if strategy in ("matmul", "factored") and complex_in:
         raise ValueError(
             f"strategy={strategy!r} requires real input (the stacked-real "
-            "MXU weight layout); use 'einsum' for complex signals")
+            "weight layout); use 'einsum' for complex signals")
     if strategy in ("matmul", "factored") and dtype == jnp.float64:
         import warnings
 
         warnings.warn(
             f"pfb_analyze strategy={strategy!r} computes in float32 "
-            "(MXU stacked-real weights); float64 input is downcast. Use "
+            "(stacked-real weights); float64 input is downcast. Use "
             "strategy='einsum' (or 'auto') to keep f64 accuracy.",
             UserWarning, stacklevel=2)
 
@@ -352,8 +342,7 @@ def pfb_analyze(x, n_channels: int, *, taps_per_channel: int = 8, window=("kaise
     if strategy == "matmul":
         channels = _pfb_matmul(x, proto, m, window_length, precision)
     elif strategy == "factored":
-        # depthwise-conv sliding sum where the half-lane shifted adds hurt
-        # (m < 128: +9-11% at scale, ROOFLINE.md §7.5); 'shifts' at m >= 128
+        # depthwise-conv sliding sum for m < 128, shifted adds at m >= 128
         channels = _pfb_factored(
             x, proto, m, taps_per_channel, precision,
             sum_mode="conv" if m < 128 else "shifts")
@@ -363,7 +352,8 @@ def pfb_analyze(x, n_channels: int, *, taps_per_channel: int = 8, window=("kaise
         batch_frames = frames.shape[:-1]
         blocks = frames.reshape(*batch_frames, taps_per_channel, m)
         # y[t, c] = sum_j w[j, c] * x[t*m + j*m + c]  (filter-and-decimate)
-        summed = jnp.einsum("...jc,jc->...c", blocks, weights.astype(dtype))
+        summed = jnp.einsum("...jc,jc->...c", blocks, weights.astype(dtype),
+                            precision="highest")
         channels = jnp.fft.fft(summed, axis=-1)
     if shift:
         channels = jnp.fft.fftshift(channels, axes=-1)
@@ -385,10 +375,7 @@ def pfb_footprint_bytes(strategy: str, batch_elems: int, length: int,
                  buffer + accumulator + complex out.
 
     Example: the 1024-band config-5 point at 8 x 4.19 Msamples models
-    ~0.9 GB ('factored') vs ~2.0 GB ('einsum') — all single-chip; the
-    einsum path hits the 12.5 GB v5e budget near 8 x 28 Msamples while
-    'factored' reaches ~8 x 56 Msamples (measured max point:
-    scripts/pfb_max_r4.py, ROOFLINE.md §7.2).
+    ~0.9 GB ('factored') vs ~2.0 GB ('einsum').
 
     Examples:
 
@@ -434,10 +421,10 @@ def _pfb_matmul(x, proto, m, window_length, precision):
 def _pfb_factored(x, proto, m, taps_per_channel, precision,
                   sum_mode: str = "shifts"):
     """PFB with the polyphase sum factored out: the taps_per_channel-tap
-    weighted sliding sum over the free hop-block view (16 VPU
+    weighted sliding sum over the free hop-block view (16
     FLOP/sample), then one (T, m) @ (m, 2m) DFT matmul — the
     FLOP-minimal form (the combined matmul costs taps_per_channel-fold
-    more MXU work).
+    more work).
 
     `sum_mode` selects the sliding-sum lowering: 'shifts' =
     taps_per_channel shifted multiply-adds; 'conv' = ONE depthwise
@@ -461,7 +448,7 @@ def _pfb_factored(x, proto, m, taps_per_channel, precision,
         s = lax.conv_general_dilated(
             u2, w[:, None, :], window_strides=(1,), padding="VALID",
             dimension_numbers=("NWC", "WIO", "NWC"), feature_group_count=m,
-            precision=precision)   # TPU conv defaults to bf16 otherwise
+            precision=precision)
         s = s.reshape(*batch, num_frames, m)
     else:
         s = w[0] * u[..., :num_frames, :]
@@ -470,11 +457,9 @@ def _pfb_factored(x, proto, m, taps_per_channel, precision,
     ones = np.ones(m, dtype=np.float64)
     f_mat = jnp.asarray(
         _dft_weights(ones, m, m, False, np.float64).astype(np.float32))
-    # Flatten leading axes into M for the DFT GEMM: one large matmul runs
-    # 23% faster than the batched form at m=1024 on silicon
-    # (scripts/pfb_dft_levers_r5.py: flat 26.3 ms vs batched 34.1 at
-    # (8, 16377, 1024) @ (1024, 2048)) — the same lesson as
-    # blocked_frame_matmul's batch flattening. Bitwise-identical rows.
+    # Flatten leading axes into M for the DFT GEMM: one large matmul
+    # instead of a batch of them, as in blocked_frame_matmul.
+    # Bitwise-identical rows.
     lead = s.shape[:-1]
     acc = jnp.matmul(s.reshape(-1, m), f_mat, precision=precision)
     acc = acc.reshape(*lead, 2 * m)
@@ -563,8 +548,8 @@ def decimate(x, q: int, *, n: int = None, ftype: str = "iir", axis: int = -1,
     in centered polyphase form (group delay compensated).
 
     New relative to the reference. The IIR path runs as log-depth
-    associative-scan biquads, the FIR path as the MXU Toeplitz convolver —
-    both TPU-resident (ops/iir.py, ops/convolution.py).
+    associative-scan biquads, the FIR path as the Toeplitz-matmul
+    convolver — both on the device (ops/iir.py, ops/convolution.py).
 
     Examples:
 
@@ -590,7 +575,7 @@ def decimate(x, q: int, *, n: int = None, ftype: str = "iir", axis: int = -1,
         b, a = cheby1(order, 0.05, 0.8 / q)
         y = filtfilt(b, a, x, axis=axis) if zero_phase else lfilter(b, a, x, axis=axis)
     elif ftype == "sos":
-        # TPU-fast extension (not in scipy's decimate): the same Chebyshev-I
+        # extension (not in scipy's decimate): the same Chebyshev-I
         # anti-alias filter as cascaded biquads -> every section runs as a
         # log-depth parallel scan instead of the order-8 sequential ba form
         from nx_signal_tpu.ops.iir import sosfilt, sosfiltfilt

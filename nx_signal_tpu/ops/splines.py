@@ -3,7 +3,7 @@ scipy.signal's spline family: smoothing IIR filters with mirror-symmetric
 boundary conditions, 1-D/2-D B-spline coefficient transforms, and spline
 evaluation. Not in the reference (nx_signal has no spline support).
 
-TPU-first notes: the forward/backward recursions run through ops/iir.py's
+Design notes: the forward/backward recursions run through ops/iir.py's
 lfilter/sosfilt (log-depth associative scans, jittable); the
 mirror-symmetric initial conditions are closed-form weighted sums (one
 matvec) rather than scipy's sequential C loops, with the same convergence
@@ -361,7 +361,7 @@ def sepfir2d(input, hrow, hcol):
     """Separable 2-D FIR with mirror-symmetric boundaries —
     scipy.signal.sepfir2d semantics: odd-length `hrow` along rows, `hcol`
     along columns, output the same shape. Reflect-pad + valid correlation
-    (MXU lax.conv via ops.convolution under the hood is unnecessary here —
+    (lax.conv via ops.convolution under the hood is unnecessary here —
     the kernels are tiny, a dot over the stacked shifts suffices).
 
     Examples:

@@ -1,7 +1,7 @@
 """N-D FFT helpers with per-axis length control.
 
 Reference: lib/nx_signal/transforms.ex (fft_nd/ifft_nd as a fold of 1-D FFTs
-with optional per-axis lengths). On TPU these map directly onto XLA's batched
+with optional per-axis lengths). These map directly onto XLA's batched
 FFT; per-axis pad/truncate semantics are preserved via the `s` argument.
 """
 
@@ -60,7 +60,7 @@ def ifft_nd(x, *, axes=None, lengths=None):
 
 def rfft_nd(x, *, axes=None, lengths=None):
     """Real-input forward FFT over `axes` (half-spectrum on the last of
-    `axes`) — the TPU-fast path for real convolution: half the FFT work and
+    `axes`) — the fast path for real convolution: half the FFT work and
     HBM traffic of `fft_nd`.
 
     Examples:
@@ -99,10 +99,10 @@ def hilbert(x, *, n: int = None, axis: int = -1):
     Hilbert transform; |hilbert(x)| is the envelope. Not in the reference;
     completes the envelope/demodulation workflows (ops/mixing.py).
 
-    `n` defaults to the signal length (exact scipy parity). TPU caveat: a
-    non-power-of-two FFT lowers to a dense O(N^2) DFT there (CLAUDE.md) —
-    for long signals on TPU pass n=utils.shapes.fft_fast_length(length) and
-    slice, accepting the slight boundary difference.
+    `n` defaults to the signal length (exact scipy parity). For long
+    signals whose length factors badly, pass
+    n=utils.shapes.fft_fast_length(length) and slice, accepting the slight
+    boundary difference.
 
     Examples:
 

@@ -188,7 +188,7 @@ def polynomial_sweep(t, coefs, *, phi: float = 0.0, phi_unit: str = "radians"):
     (n,) = coefs.shape
     powers = n - jnp.arange(n, dtype=t.dtype)  # n, n-1, ..., 1
     t_poly = t[None, :] ** powers[:, None]
-    phase = jnp.dot(coefs / powers, t_poly)
+    phase = jnp.dot(coefs / powers, t_poly, precision="highest")
     if phi_unit == "degrees":
         phi = phi * math.pi / 180.0
     elif phi_unit != "radians":

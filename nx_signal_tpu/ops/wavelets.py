@@ -5,10 +5,9 @@ scipy.signal's legacy wavelet API (ricker/morlet/morlet2/qmf/cwt, removed
 from scipy 1.15 but still the de-facto semantics, and still used
 internally by scipy.signal.find_peaks_cwt — the oracle for these tests).
 
-TPU-first design for `cwt`: scipy loops scales calling convolve per
+Design of `cwt`: scipy loops scales calling convolve per
 width. Here the data is FFT'd ONCE at a shared power-of-two length
-(utils/shapes.py fft_fast_length — XLA's TPU FFT lowers non-pow-2 sizes
-to dense O(N^2) matmuls), the whole wavelet bank is transformed as one
+(utils/shapes.py fft_fast_length), the whole wavelet bank is transformed as one
 batched FFT, and all scales multiply/inverse-transform together: one
 (n_scales, L) elementwise pass over HBM instead of n_scales separate
 convolutions. Per-scale 'same' alignment is restored by static slices

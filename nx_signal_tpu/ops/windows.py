@@ -52,7 +52,7 @@ __all__ = [
 
 def rectangular(n: int, *, dtype=jnp.int32):
     """All-ones window (reference: windows.ex:33-36; the reference defaults to
-    s64 — here int32, TPU's native integer width).
+    s64 — here int32, the default integer width).
 
     Examples:
 

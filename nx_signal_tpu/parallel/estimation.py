@@ -7,7 +7,7 @@ reduction: each device computes the segment spectra of its own time block
 (frame-tail halos via the sharded STFT machinery, parallel/sharded.py),
 forms per-segment cross-power locally, and the segment mean reduces across
 the block axis — XLA lowers the mean over the sharded segment axis to
-per-device partial sums + one psum over ICI, so the only communications are
+per-device partial sums + one psum across the cards, so the only communications are
 the (segment_length - stride)-sample halo and one bins-sized reduction.
 """
 

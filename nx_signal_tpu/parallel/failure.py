@@ -2,7 +2,7 @@
 
 SURVEY.md §5 (failure-detection row): the reference fails fast on bad
 options and has nothing else; a multi-host streaming framework needs (a) a
-LIVENESS PROBE — on a TPU pod a dead or wedged peer does not error, it
+LIVENESS PROBE — in a multi-host job a dead or wedged peer does not error, it
 makes the next collective hang forever, so detection is a deadline on a
 tiny cross-device reduction — and (b) a RESTART PATH — every op here is
 pure, so the only state is the streaming carry, which io/checkpoint.py

@@ -7,12 +7,12 @@ reference is single-device):
   signal channels (leading batch axis).
 * 'block'   — time-block sequence parallelism: contiguous stream blocks per
   device, with K-1 overlap-save filter tails / STFT frame tails / OLA frame
-  tails exchanged between neighbors via jax.lax.ppermute (ICI neighbor
+  tails exchanged between neighbors via jax.lax.ppermute (neighbor
   traffic, never all-to-all).
 
-On a multi-host slice, jax.make_mesh orders devices so that the trailing
-mesh axis maps to intra-host/ICI neighbors — put 'block' last so halo
-exchange rides ICI while 'channel' (no communication) spans DCN.
+In a multi-host job, jax.make_mesh orders devices so that the trailing
+mesh axis maps to the cards of one host — put 'block' last so halo
+exchange stays on NVLink while 'channel' (no communication) spans hosts.
 """
 
 import jax

@@ -6,11 +6,12 @@ Design (SURVEY.md §2.9/§5 — all greenfield; the reference is single-device):
   `initialize()` wires jax.distributed so jax.devices() spans the pod slice
   and global arrays shard across hosts.
 * Mesh layout: 'block' (time-block sequence parallelism) goes on the
-  TRAILING mesh axis so ppermute halo exchange rides ICI between physically
-  adjacent chips; 'channel' (no communication) spans hosts over DCN.
-  `make_pod_mesh` builds this from the global device list.
+  TRAILING mesh axis so ppermute halo exchange stays between the cards of
+  one host (NVLink); 'channel' (no communication) spans hosts over the
+  network. `make_pod_mesh` builds this from the global device list.
 * Halos cross host boundaries only at the two block-edge devices per host —
-  O(filter_length) bytes per step over DCN, everything else ICI.
+  O(filter_length) bytes per step over the network, everything else
+  within a host.
 * Elastic recovery: streaming jobs checkpoint their carry state (see
   parallel/streaming.py — the carries are small pytrees) and restart from
   the last block boundary; there is no in-flight state anywhere else
@@ -33,7 +34,7 @@ def initialize(coordinator_address=None, num_processes=None, process_id=None):
     every host.
 
     With no arguments, attempts jax.distributed.initialize()'s automatic
-    cluster detection (TPU pod metadata, SLURM, ...); if no cluster
+    cluster detection (SLURM and the other environments JAX knows); if no cluster
     environment is detected this is a warning-free no-op on a plain single
     process, but a detected-yet-failing environment raises rather than
     silently degrading to a host-local mesh (which would zero-fill halos at
@@ -65,7 +66,7 @@ def initialize(coordinator_address=None, num_processes=None, process_id=None):
 
 def make_pod_mesh(n_channel: int = 1):
     """('channel', 'block') mesh over ALL devices in the (multi-host) job,
-    channel axis first so time-block halos stay on ICI within each host.
+    channel axis first so time-block halos stay within each host.
 
     Examples:
 

@@ -76,8 +76,7 @@ def _check_divisible(name, value, divisor):
         raise ValueError(f"{name} ({value}) must be divisible by {divisor}")
 
 
-def sharded_convolve_same(x, taps, *, mesh, method="direct",
-                          halo="ppermute"):
+def sharded_convolve_same(x, taps, *, mesh, method="direct"):
     """'same'-mode FIR application, sharded over channels and time blocks.
 
     Overlap-save style: each device fetches (K-1)-sample halos — the left
@@ -86,15 +85,12 @@ def sharded_convolve_same(x, taps, *, mesh, method="direct",
     then runs a local 'valid' convolution. There is no cross-device
     accumulation at all, so results match the single-device
     `convolve(x, taps, mode='same')` exactly up to the backend's matmul
-    determinism: method='direct' (Toeplitz-matmul MXU path, fastest) is
-    bitwise identical on TPU; method='conv' (lax.conv) is bitwise identical
-    everywhere but ~25x slower on TPU; method='fft' matches to FFT accuracy.
-
-    `halo` selects the exchange mechanism: 'ppermute' (default, XLA
-    collective) or 'pallas_dma' (kernels/pallas_halo.py — each device
-    DMAs its halo directly into the neighbour's buffer with
-    `make_async_remote_copy`; bitwise-equal to 'ppermute', currently
-    interpret-mode-verified pending pod hardware).
+    determinism: method='direct' (the Toeplitz-matmul path) is bitwise
+    identical wherever the backend's GEMM sums in a fixed order for the
+    local shape; method='conv' (lax.conv) is bitwise identical on the
+    CPU; method='fft' matches to FFT accuracy. The halos travel by
+    `lax.ppermute`, which XLA hands to the backend's collectives (NCCL
+    on GPUs).
 
     Examples:
 
@@ -133,33 +129,22 @@ def sharded_convolve_same(x, taps, *, mesh, method="direct",
             "use fewer blocks or a shorter filter"
         )
     kernel2d = taps[None, :]
-    if halo not in ("ppermute", "pallas_dma"):
-        raise ValueError(
-            f"halo must be 'ppermute' or 'pallas_dma', got {halo!r}")
 
     def local(x_blk):
-        if halo == "pallas_dma":
-            from nx_signal_tpu.kernels.pallas_halo import halo_extend_dma
-
-            ext = halo_extend_dma(x_blk, pad_left, pad_right,
-                                  axis_name=BLOCK_AXIS, n_dev=n_block)
-        else:
-            parts = []
-            if pad_left:
-                parts.append(_shift_from_left(x_blk[:, -pad_left:], n_block))
-            parts.append(x_blk)
-            if pad_right:
-                parts.append(_shift_from_right(x_blk[:, :pad_right], n_block))
-            ext = (jnp.concatenate(parts, axis=-1)
-                   if len(parts) > 1 else parts[0])
+        parts = []
+        if pad_left:
+            parts.append(_shift_from_left(x_blk[:, -pad_left:], n_block))
+        parts.append(x_blk)
+        if pad_right:
+            parts.append(_shift_from_right(x_blk[:, :pad_right], n_block))
+        ext = jnp.concatenate(parts, axis=-1) if len(parts) > 1 else parts[0]
         if method == "direct":
             # origin: every device's ext starts pad_left samples before a
             # multiple of the (grid-aligned) block boundary, so the Toeplitz
             # grid has the same global phase as the single-device call.
-            # Bitwise-identical on TPU (fixed MXU reduction order); on CPU
-            # the GEMM reduction order varies with the batch extent, so only
-            # ulp-tight agreement holds there (method='conv' is bitwise
-            # everywhere, at lax.conv speed).
+            # Bitwise only where the GEMM's reduction order does not depend
+            # on the batch extent; on CPU it does, so only ulp-tight
+            # agreement holds there (method='conv' is bitwise on the CPU).
             return fir_convolve_1d(
                 _float_cast(ext), _float_cast(taps), "valid", origin=-pad_left
             )
@@ -522,7 +507,7 @@ def sharded_sosfilt(sos, x, *, mesh):
     scans — ops/iir.py), the tiny per-block final states are all_gathered
     and chained through the host-precomputed block transition matrix
     T = A^L (a B-step scan over B = n_block devices), and each device adds
-    its incoming state's zero-input response as ONE tall-skinny MXU matmul
+    its incoming state's zero-input response as ONE tall-skinny matmul
     against the precomputed observability matrix G[n] = C A^n. Total
     communication: one (2*n_sections)-float all_gather. Matches the
     single-device `sosfilt` to f.p. accuracy (the block-local scans
@@ -820,9 +805,10 @@ def sharded_fir_framed_dft_power(x, taps, window, *, mesh, stride: int,
     m*stride + frame + (K-1)//2 - 1], so each device fetches pad_left =
     (K-1) - (K-1)//2 left-neighbor samples (zeros at device 0 — exactly
     the single-device left pad) and frame - stride + (K-1)//2 right
-    samples. Frames never straddle device math — bitwise equal to the
-    single-device call on TPU (fixed MXU reduction order); ulp-tight on
-    CPU (GEMM/conv reduction order varies with batch extent there).
+    samples. Frames never straddle device math, so the sharded result
+    equals the single-device call up to the conv's reduction order for
+    the local shape (ulp-tight on CPU, where it varies with the batch
+    extent).
 
     Examples:
 
@@ -847,10 +833,10 @@ def sharded_fir_framed_dft_power(x, taps, window, *, mesh, stride: int,
     k = taps.shape[0]
     ext = frame_length + k - 1
     bins = n_fft // 2 + 1 if onesided else n_fft
-    if not good_matmul_fft_length(n_fft) or n_fft < frame_length:
+    if n_fft < frame_length:
         raise ValueError(
             "sharded_fir_framed_dft_power requires a matmul-DFT geometry: "
-            f"fft_length <= 1024 and >= frame_length, got {n_fft}")
+            f"fft_length >= frame_length, got {n_fft} < {frame_length}")
     n_channel, n_block = mesh.shape[CHANNEL_AXIS], mesh.shape[BLOCK_AXIS]
     _check_divisible("channels", x.shape[0], n_channel)
     _, padded_len, _, num_frames, _ = _stft_frame_geometry(

@@ -193,7 +193,7 @@ class StreamingPFB:
     signal PREPENDED with that many zeros: concatenating per-chunk outputs
     equals `pfb_analyze(concat([zeros((tpc-1)*m), stream]))`, and dropping
     the first `lead_frames` (= taps_per_channel-1) output frames gives
-    `pfb_analyze(stream)` exactly (bit-for-bit on TPU, where the MXU
+    `pfb_analyze(stream)` exactly (bit-for-bit where the GEMM's
     reduction order is fixed; to f32 GEMM accuracy on CPU). Chunk lengths
     must be multiples of n_channels and static per jit-compilation; the
     state is a plain array pytree, serializable with `io/checkpoint.py`
@@ -287,7 +287,7 @@ class StreamingResamplePoly:
     filter's group-delay lookahead) makes every chunk's outputs depend
     only on already-received input. Alignment: concatenating the per-call
     outputs and dropping the first `lead_out` (= Z*up/down) samples gives
-    `resample_poly(stream)` sample-for-sample (bitwise on TPU; f32 GEMM
+    `resample_poly(stream)` sample-for-sample (bitwise where the GEMM's order is fixed; f32 GEMM
     accuracy on CPU); to drain the filter tail at end-of-stream, feed
     zero chunks until `lead_out + ceil(n_in*up/down)` total outputs have
     been collected. State is a plain array pytree (checkpoint/resume).

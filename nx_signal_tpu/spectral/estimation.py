@@ -6,7 +6,7 @@ averaged estimators are the standard scipy.signal layer users expect on top
 of it (scipy.signal.periodogram/welch/csd/coherence semantics, including
 segment detrending, density/spectrum scaling, and mean/median averaging).
 
-TPU-first notes: segmentation + window + DFT rides the fused MXU framed-DFT
+Design notes: segmentation + window + DFT rides the fused framed-DFT
 kernel (kernels/dft.py) via spectral.stft for real input; the per-segment
 'constant' and 'linear' detrends are applied in the frequency domain by
 linearity — the removed trend is a linear functional of the segment, so
@@ -38,9 +38,9 @@ def lombscargle(x, y, freqs, *, precenter: bool = False,
     form with the per-frequency time offset tau that makes the sinusoid
     basis orthogonal).
 
-    TPU mapping: the (n_freqs, n_samples) phase matrix w x^T is built once
+    Mapping: the (n_freqs, n_samples) phase matrix w x^T is built once
     and every sum is a row reduction / matvec — the whole periodogram is a
-    handful of MXU-shaped products, not scipy's per-frequency loop. Not in
+    handful of matmul-shaped products, not scipy's per-frequency loop. Not in
     the reference (no unevenly-sampled support there).
 
     Examples:
@@ -236,9 +236,10 @@ def _segment_spectra(x, window, *, stride, n_fft, onesided, detrend,
             )  # (..., segments, k)
         else:
             frames = as_windowed(x, window_length=frame_length, stride=stride)
-            coefs = frames @ jnp.asarray(cols, frames.real.dtype)
+            coefs = jnp.matmul(frames, jnp.asarray(cols, frames.real.dtype),
+                               precision=precision)
         wk = _detrend_basis_spectra(window, n_fft, one_sided_fft, detrend)
-        z = z - coefs @ wk
+        z = z - jnp.matmul(coefs, wk, precision=precision)
     return z
 
 

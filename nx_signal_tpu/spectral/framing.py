@@ -3,7 +3,7 @@
 Reference semantics: lib/nx_signal.ex `as_windowed/2` (:249-364) and
 `overlap_and_add/2` (:684-727).
 
-TPU-first design notes
+Design notes
 ----------------------
 * `as_windowed` is NOT a gather (the reference vmaps Nx.slice over an iota of
   window starts, nx_signal.ex:354-364). Here framing is decomposed into

@@ -2,7 +2,7 @@
 
 Reference semantics: lib/nx_signal.ex `mel_filters/4` (:397-445) and
 `stft_to_mel/3` (:486-513). The mel projection is a plain matmul over the
-frequency axis — MXU work that XLA tiles directly.
+frequency axis — matmul work that XLA tiles directly.
 """
 
 import math
@@ -92,7 +92,8 @@ def stft_to_mel(z, sampling_rate, *, fft_length: int, mel_bins: int = 128,
     )
 
     freq_size = fft_length // 2
-    mel_spec = jnp.matmul(magnitudes[..., :freq_size], filters[:, :freq_size].T)
+    mel_spec = jnp.matmul(magnitudes[..., :freq_size], filters[:, :freq_size].T,
+                          precision="highest")
 
     log_spec = jnp.log10(jnp.clip(mel_spec, 1e-10, None))
     log_spec = jnp.maximum(log_spec, jnp.max(log_spec) - 8.0)

@@ -1,4 +1,4 @@
-"""ShortTimeFFT — scipy.signal's modern STFT class API, TPU-idiom inside.
+"""ShortTimeFFT — scipy.signal's modern STFT class API, JAX-idiom inside.
 
 Semantics follow scipy.signal.ShortTimeFFT: a window `win` sliding by `hop`
 samples, where slice p is CENTERED at sample p*hop (the window covers
@@ -6,7 +6,7 @@ samples [p*hop - m_num_mid, p*hop - m_num_mid + m_num)), with signal-edge
 slices padded by a choosable mode, four fft_modes, canonical-dual-window
 inversion, and 'magnitude'/'psd' scaling.
 
-TPU-first differences from scipy's implementation (none observable):
+Differences from scipy's implementation (none observable):
 * the per-slice Python loop + np.roll becomes ONE batched framed FFT over
   an as_windowed matrix, with the phase_shift roll folded into a per-bin
   phase factor (fft(roll(v, -s))[k] == fft(v)[k] * exp(2j pi k s / mfft));
@@ -141,9 +141,9 @@ class ShortTimeFFT:
     """scipy.signal.ShortTimeFFT-compatible short-time FFT engine.
 
     `fft_method` ('auto' default / 'fft' / 'matmul') selects the forward
-    transform of the onesided modes: 'auto' runs the MXU matmul DFT on
-    TPU backends for real input with mfft <= 1024 (XLA's TPU FFT measured
-    ~3x slower there — ROOFLINE.md §1) and jnp.fft elsewhere.
+    transform of the onesided modes: 'auto' runs the matmul DFT for real
+    input where `kernels.dft.good_matmul_fft_length` prefers it (the rule
+    `stft` follows) and jnp.fft elsewhere.
 
     Examples:
 
@@ -577,17 +577,14 @@ class ShortTimeFFT:
         return spec
 
     def _forward_onesided(self, v):
-        """rfft of the windowed frame matrix, dispatched to the MXU matmul
-        DFT on TPU backends (fft_method='auto'): XLA's TPU FFT measured ~3x
-        slower than the DFT matmul for mfft <= 1024 (ROOFLINE.md §1), the
-        same rule spectral.stft applies. The FFT path is kept for CPU
-        (f64-exact there) and large mfft."""
+        """rfft of the windowed frame matrix, dispatched to the matmul DFT
+        when fft_method='auto' and `good_matmul_fft_length` prefers it —
+        the rule spectral.stft applies."""
         method = getattr(self, "fft_method", "auto")
         use_matmul = method == "matmul" or (
             method == "auto"
             and not jnp.issubdtype(v.dtype, jnp.complexfloating)
             and good_matmul_fft_length(self.mfft)
-            and jax.default_backend() not in ("cpu",)
         )
         if not use_matmul or jnp.issubdtype(v.dtype, jnp.complexfloating):
             return jnp.fft.rfft(v, n=self.mfft, axis=-1)

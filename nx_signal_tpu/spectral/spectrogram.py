@@ -2,7 +2,7 @@
 
 The reference exposes spectrograms only through its Livebook guide
 (spectrogram.livemd); this functional form matches scipy's (f, t, Sxx)
-contract so scipy.signal users can switch directly. Rides the fused MXU
+contract so scipy.signal users can switch directly. Rides the fused
 framed-DFT path (kernels/dft.py) via `stft`.
 """
 

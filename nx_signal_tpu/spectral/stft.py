@@ -3,7 +3,7 @@
 Reference semantics: lib/nx_signal.ex `stft/3` (:68-130), `istft/3`
 (:582-638), `fft_frequencies/2` (:154-166).
 
-TPU-first notes: framing is the gather-free slice/reshape decomposition
+Design notes: framing is the gather-free slice/reshape decomposition
 (see spectral/framing.py), the window multiply fuses into it, and the batched
 FFT runs as one XLA FFT op over all frames. Extra leading batch axes
 (channels) are supported everywhere — they become the data-parallel sharding
@@ -87,19 +87,19 @@ def stft(data, window, *, sampling_rate=100, fft_length="power_of_two",
     overlap_length frame_length//2, window_padding 'valid',
     scaling in {None, 'spectrum', 'psd'}.
 
-    `onesided=True` (TPU-native extension, not in the reference) computes
+    `onesided=True` (an extension, not in the reference) computes
     the rfft half-spectrum (fft_length//2 + 1 bins) for real input — half
     the FFT work and output bandwidth; z[k] for k > N/2 is redundant
     (conj-symmetric) for real signals.
 
-    `method`: 'auto' (default) uses the fused framing+window+DFT MXU
-    matmul kernel (kernels/dft.py) for real input with fft_length <= 1024 —
-    measured ~3x faster than framing + XLA FFT on TPU — and XLA's FFT
-    otherwise; 'fft' / 'matmul' force a path.
+    `method`: 'auto' (default) uses the fused framing+window+DFT matmul
+    (kernels/dft.py) for real input where `good_matmul_fft_length`
+    prefers it — on the H100 at no length, XLA's FFT won at every length
+    timed — and XLA's FFT otherwise; 'fft' / 'matmul' force a path.
 
-    `precision` controls the MXU passes of the matmul path ('highest' =
-    full-f32, 'high' = 3-pass bf16, 'default' = single bf16 pass — each
-    step trades accuracy for speed); ignored on the FFT path.
+    `precision` sets the matmul path's precision ('highest' = full f32;
+    on the H100 'high' and 'default' run TF32, ~3e-4 of the spectrum's
+    peak); ignored on the FFT path.
 
     Examples:
 
@@ -197,12 +197,13 @@ def istft(z, window, *, fft_length=None, overlap_length=None, scaling=None,
     reference's doctests do via as_type). Perfect reconstruction holds in the
     overlapping interior for NOLA windows.
 
-    TPU-native extensions (not in the reference): `onesided=True` accepts a
+    Extensions (not in the reference): `onesided=True` accepts a
     half-spectrum (fft_length//2 + 1 bins, e.g. from
     `stft(..., onesided=True)`) and returns a REAL reconstruction; `method`
-    picks the per-frame inverse — 'auto' uses the fused iDFT+window MXU
-    matmul (kernels/dft.py) for fft_length <= 1024, XLA's IFFT otherwise;
-    `precision` sets that matmul's MXU precision (see `stft`).
+    picks the per-frame inverse — 'auto' uses the fused iDFT+window
+    matmul (kernels/dft.py) where `good_matmul_fft_length` prefers it,
+    XLA's IFFT otherwise; `precision` sets that matmul's precision (see
+    `stft`).
 
     Examples:
 
@@ -238,7 +239,7 @@ def istft(z, window, *, fft_length=None, overlap_length=None, scaling=None,
     )
 
     if use_matmul:
-        # fused inverse-DFT + synthesis-window multiply on the MXU; scaling
+        # fused inverse-DFT + synthesis-window multiply as a matmul; scaling
         # is a scalar multiply and commutes with the linear transform
         windowed = framed_idft(z, window, n_fft=n_fft, onesided=onesided,
                                precision=precision)

@@ -1,8 +1,8 @@
 """Dtype policy helpers.
 
-The framework is float32-first (TPU-native): every op that produces floating
+The framework is float32-first: every op that produces floating
 point data defaults to float32 regardless of the `jax_enable_x64` flag, so
-behavior is identical on TPU (no f64) and on CPU test runs (x64 enabled so
+behavior is identical on the accelerator and on CPU test runs (x64 enabled so
 the few f64 pockets — Wiener accumulation, Lambert W — stay exact).
 
 Mirrors the reference dtype conventions (reference: lib/nx_signal/windows.ex

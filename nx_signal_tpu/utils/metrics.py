@@ -2,7 +2,7 @@
 meters, and one-JSON-line-per-event structured logs.
 
 SURVEY.md §5 (metrics/logging row): the reference has no observability
-layer; the TPU framework's north-star metrics are samples/s,
+layer; this framework's north-star metrics are samples/s,
 Msamples/s/chip, and scaling efficiency (BASELINE.md ≥85% row), so those
 are first-class here. Used by scripts/pod_bench.py; `bench.py` keeps its
 own single-line driver contract.
@@ -31,10 +31,10 @@ def log_event(event: str, *, stream=None, **fields):
     >>> import io, json
     >>> from nx_signal_tpu.utils.metrics import log_event
     >>> buf = io.StringIO()
-    >>> log_event('bench', stream=buf, chip='v5e')
+    >>> log_event('bench', stream=buf, device='gpu')
     >>> rec = json.loads(buf.getvalue())
-    >>> rec['event'], rec['chip'], 'ts' in rec
-    ('bench', 'v5e', True)
+    >>> rec['event'], rec['device'], 'ts' in rec
+    ('bench', 'gpu', True)
     """
     rec = {"event": event, "ts": round(time.time(), 3)}
     rec.update(fields)

@@ -17,7 +17,7 @@ def next_power_of_two(n: int) -> int:
 def fft_fast_length(n: int) -> int:
     """FFT length used for convolution padding: the next power of two.
 
-    XLA's TPU FFT lowers non-power-of-two sizes to a dense O(N^2) DFT
+    Some FFT backends lower non-power-of-two sizes to a dense O(N^2) DFT
     matmul (measured: a 486000-point request tried to allocate the full
     N x N f32 matrix), so convolution FFTs are always padded to pow-2 —
     exact-length slicing keeps results identical to the N+K-1 definition

@@ -145,7 +145,7 @@ def main():
 
     # API index page
     body = ["<h1>nx_signal_tpu API</h1>",
-            "<p>TPU-native DSP framework mirroring elixir-nx/nx_signal's "
+            "<p>DSP framework on JAX/XLA mirroring elixir-nx/nx_signal's "
             "surface. Functions are grouped by the registry taxonomy "
             "(the reference's <code>@doc type:</code> groups).</p>"]
     n_funcs = 0

@@ -4,7 +4,7 @@
 #        scripts/ci.sh full   + the slow tier (~45 min)
 set -euo pipefail
 cd "$(dirname "$0")/.."
-python -m compileall -q nx_signal_tpu tests scripts bench.py __graft_entry__.py
+python -m compileall -q nx_signal_tpu tests scripts bench.py chip_smoke.py __graft_entry__.py
 python scripts/build_docs.py /tmp/docs_html_ci
 if [[ "${1:-fast}" == "full" ]]; then
     python -m pytest tests/ -q

@@ -3,7 +3,7 @@
 This is the /verify skill's drive script (kept in-repo so each round's
 end-to-end recipe persists). Run from anywhere:
 
-    PYTHONPATH=/root/repo python scripts/verify_drive.py
+    PYTHONPATH=<checkout> python <checkout>/scripts/verify_drive.py
 
 Covers: firwin design gates, convolve/oaconvolve agreement + stopband,
 stft/istft round-trip, stft_to_mel, sharded bitwise parity on the 8-device
@@ -79,8 +79,8 @@ zs, _, _ = stft(jnp.asarray(xs), w, overlap_length=384, fft_length=512, sampling
 sz, _, _ = sharded_stft(jnp.asarray(xs), w, mesh=mesh, overlap_length=384, fft_length=512, sampling_rate=16000.0)
 srel = float(jnp.max(jnp.abs(sz - zs)) / jnp.max(jnp.abs(zs)))
 assert srel <= 1e-6, srel
-gi = sharded_istft(zs, w, mesh=mesh, overlap_length=384, fft_length=512, sampling_rate=16000.0)
-si = istft(zs, w, overlap_length=384, fft_length=512, sampling_rate=16000.0)
+gi = sharded_istft(zs, w, mesh=mesh, overlap_length=384, fft_length=512, sampling_rate=16000.0, method="matmul")
+si = istft(zs, w, overlap_length=384, fft_length=512, sampling_rate=16000.0, method="matmul")
 np.testing.assert_array_equal(np.asarray(gi), np.asarray(si))
 print(f"5. sharded parity OK (conv bitwise, stft rel {srel:.1e}, istft bitwise)")
 
@@ -325,10 +325,8 @@ np.testing.assert_allclose(
     rtol=1e-10)
 print("15. round-3 surface (classes/place_poles/firwin_2d/dual-window/aliases) OK")
 
-# 16. round-3 kernels: frame-chunked fused power path + the fused
-# FIR+DFT+power Pallas kernel (interpreter) against the XLA production path
+# 16. frame-chunked fused power path against the unchunked one
 from nx_signal_tpu.kernels.dft import fir_framed_dft as _ffd16
-from nx_signal_tpu.kernels.pallas_dft import fir_framed_dft_power_pallas as _pp16
 _x16 = np.random.default_rng(16).normal(size=(3, 6000)).astype(np.float32)
 _t16 = np.asarray(nst15.firwin(101, [0.25]), np.float32)
 _w16 = np.hanning(512).astype(np.float32)
@@ -349,21 +347,12 @@ _re16 = np.asarray(_ffd16(_xe16, _t16, _w16, stride=128, n_fft=512,
 _ce16 = np.asarray(_ffd16(_xe16, _t16, _w16, stride=128, n_fft=512,
                           onesided=True, output="power", edge="conv"))
 np.testing.assert_allclose(_ce16, _re16, atol=1e-5 * _re16.max())
-_pal16 = np.asarray(_pp16(_x16, _t16, _w16, stride=128, n_fft=512,
-                          interpret=True))
-np.testing.assert_allclose(_pal16, _ref16, atol=1e-5 * _ref16.max())
 _g16 = np.asarray(nst15.get_window("hann", 32, periodic=True), np.float64)
 _S16 = nst15.ShortTimeFFT.from_win_equals_dual(_g16, 8, fs=100.0, scale_to="unitary")
 import scipy.signal as _sps16
 _R16 = _sps16.ShortTimeFFT.from_win_equals_dual(_g16, 8, fs=100.0, scale_to="unitary")
 np.testing.assert_allclose(_S16.win, _R16.win, atol=1e-10)
 np.testing.assert_allclose(_S16.dual_win, _R16.dual_win, atol=1e-9)
-from nx_signal_tpu.kernels.pallas_dft import overlap_add_pallas as _ola16
-from nx_signal_tpu.spectral.framing import overlap_and_add as _oa16
-_f16 = np.random.default_rng(17).normal(size=(2, 20, 512)).astype(np.float32)
-np.testing.assert_array_equal(
-    np.asarray(_ola16(_f16, overlap_length=384, interpret=True)),
-    np.asarray(_oa16(_f16, overlap_length=384)))
 from nx_signal_tpu.parallel.sharded import sharded_fir_framed_dft_power as _sfc16
 from nx_signal_tpu.parallel.mesh import make_dsp_mesh as _mdm16
 from nx_signal_tpu.parallel.mesh import channel_block_sharding as _cbs16
@@ -376,33 +365,25 @@ _ref_s16 = np.asarray(_ffd16(np.asarray(_xs16), _t16, _w16, stride=128,
 _got_s16 = np.asarray(_sfc16(_xs16, _t16, _w16, mesh=_mesh16, stride=128,
                              n_fft=512, precision="highest"))
 np.testing.assert_allclose(_got_s16, _ref_s16, atol=2e-6 * _ref_s16.max())
-print("16. frame-chunked power + fused Pallas kernels (chain, OLA bitwise) + sharded fused chain + from_win_equals_dual OK")
+print("16. frame-chunked power + sharded fused chain + from_win_equals_dual OK")
 
-# 17. round-4 shared-block partial-DFT Pallas kernel (2x FLOP cut):
-# both schedules + the kernel='pallas_shared' dispatch path (interpreter)
+# 17. shared-block partial DFT (2x fewer matmul FLOPs) against the dense
+# fused chain
 from nx_signal_tpu.kernels.dft import recognize_cosine_window as _rcw17
-from nx_signal_tpu.kernels.pallas_dft import (
-    fir_framed_dft_power_shared_pallas as _sp17)
+from nx_signal_tpu.kernels.dft import fir_framed_dft_shared as _sp17
 from nx_signal_tpu.ops.windows import hann as _hann17
 _w17 = np.asarray(_hann17(512), np.float64)
 _c17 = _rcw17(_w17, 512)
 assert _c17 == (0.5, -0.5), _c17
 _ref17 = np.asarray(_ffd16(_x16, _t16, _w17, stride=128, n_fft=512,
                            onesided=True, output="power"))
-for _dma17 in ("window", "pipeline"):
-    _got17 = np.asarray(_sp17(_x16, _t16, stride=128, n_fft=512,
-                              window_coeffs=_c17, dma=_dma17,
-                              interpret=True))
-    np.testing.assert_allclose(_got17, _ref17, atol=1e-5 * _ref17.max())
-try:
-    _ffd16(_x16, _t16, np.kaiser(512, 8.0), stride=128, n_fft=512,
-           onesided=True, output="power", kernel="pallas_shared")
-    raise AssertionError("pallas_shared accepted a non-cosine window")
-except ValueError as _e17:
-    assert "cosine" in str(_e17)
-print("17. shared-block partial-DFT Pallas kernel (both schedules) + dispatch gate OK")
+_got17 = np.asarray(_sp17(_x16, _t16, stride=128, n_fft=512,
+                          window_coeffs=_c17, onesided=True, output="power"))
+np.testing.assert_allclose(_got17, _ref17, atol=1e-4 * _ref17.max())
+assert _rcw17(np.kaiser(512, 8.0), 512) is None
+print("17. shared-block partial DFT vs dense fused chain OK")
 
-# 18. round-4 PFB MXU strategies: the channelizer as an aliased-DFT
+# 18. round-4 PFB matmul strategies: the channelizer as an aliased-DFT
 # conv-of-blocks matmul / factored polyphase+DFT vs the einsum oracle
 from nx_signal_tpu.ops.resample import pfb_analyze as _pfb18
 _x18 = np.random.default_rng(18).normal(size=(2, 60000)).astype(np.float32)
@@ -414,7 +395,7 @@ for _st18 in ("matmul", "factored", "auto"):
                                atol=2e-6 * np.abs(_ref18).max())
 _got18b = np.asarray(_pfb18(_x18[0], 1024, taps_per_channel=8))  # 'factored'
 assert _got18b.shape == ((60000 - 8192) // 1024 + 1, 1024)
-print("18. PFB MXU strategies (matmul/factored/auto, 64 + 1024 bands) OK")
+print("18. PFB matmul strategies (matmul/factored/auto, 64 + 1024 bands) OK")
 
 # 19. round-4 raw/IQ stream IO (the SDR ingest path): native decode of
 # all capture dtypes + prefetching iterator + IQ assembly
@@ -468,17 +449,6 @@ while sum(_o.shape[-1] for _o in _ys20) < _sr20.lead_out + _ref20b.shape[0]:
 _got20b = np.concatenate(_ys20)[_sr20.lead_out:][:_ref20b.shape[0]]
 np.testing.assert_allclose(_got20b, _ref20b, atol=2e-5)
 print("20. streaming PFB + resample_poly (chunked == offline, flush) OK")
-
-# 21. round-5 Pallas async remote-copy DMA halo: bitwise vs the ppermute
-# halo on the 8-device CPU mesh (Mosaic TPU interpret mode)
-from nx_signal_tpu.parallel.sharded import sharded_convolve_same as _scs21
-_x21 = np.random.default_rng(21).normal(size=(4, 2048)).astype(np.float32)
-_t21 = np.random.default_rng(22).normal(size=63).astype(np.float32)
-_a21 = np.asarray(_scs21(_x21, _t21, mesh=mesh, method="conv"))
-_b21 = np.asarray(_scs21(_x21, _t21, mesh=mesh, method="conv",
-                         halo="pallas_dma"))
-assert (_a21 == _b21).all(), "pallas_dma halo != ppermute halo"
-print("21. Pallas remote-DMA halo bitwise vs ppermute OK")
 
 # 22. round-5 config-5 ingest pipeline: PrefetchingRawReader ->
 # StreamingPFB -> on-device band power == offline PFB power

@@ -46,8 +46,6 @@ DOCTEST_MODULES = [
     "nx_signal_tpu.spectral.estimation",
     "nx_signal_tpu.spectral.spectrogram",
     "nx_signal_tpu.kernels.dft",
-    "nx_signal_tpu.kernels.pallas_dft",
-    "nx_signal_tpu.kernels.pallas_halo",
     "nx_signal_tpu.parallel.mesh",
     "nx_signal_tpu.parallel.sharded",
     "nx_signal_tpu.parallel.estimation",
@@ -66,7 +64,7 @@ DOCTEST_MODULES = [
 
 def main():
     # --fast is accepted for compatibility but skips nothing: the round-5
-    # gate executes 100% of examples in every tier (VERDICT_r04 item 6)
+    # gate executes 100% of examples in every tier
     total_attempted = total_failed = 0
     for name in DOCTEST_MODULES:
         module = importlib.import_module(name)

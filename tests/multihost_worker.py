@@ -99,7 +99,7 @@ def main():
 
     # --- psum collective family across the process boundary:
     # sharded_welch's segment-axis mean reduces partial sums over the
-    # block axis, crossing the process boundary (DCN in a real pod).
+    # block axis, crossing the process boundary (the network between hosts in a real job).
     from nx_signal_tpu.parallel.estimation import sharded_welch
     from nx_signal_tpu.spectral.estimation import welch
 

@@ -1,4 +1,4 @@
-"""Checkpoint/resume of streaming carry state (SURVEY.md §5, VERDICT item 6).
+"""Checkpoint/resume of streaming carry state (SURVEY.md §5).
 
 The contract: interrupting a streaming run at any chunk boundary, saving the
 carry with io.checkpoint.save_state, and resuming in a FRESH PROCESS yields
@@ -161,7 +161,7 @@ print("RESUME_OK")
 
 class TestResumeFreshProcess:
     def test_fir_resume_across_process_restart(self, tmp_path):
-        """The VERDICT item-6 gate: restore in a fresh process, bitwise
+        """Restore in a fresh process, bitwise
         continuation vs the uninterrupted run."""
         taps = jnp.asarray(
             np.random.default_rng(1).normal(size=33).astype(np.float32))

@@ -1,4 +1,4 @@
-"""Real multi-process exercise of parallel/multihost.py (VERDICT.md item 4).
+"""Real multi-process exercise of parallel/multihost.py.
 
 Spawns a 2-process CPU 'cluster' (jax.distributed with a local coordinator,
 4 virtual devices per process = 8 global devices) in subprocesses and runs

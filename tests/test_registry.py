@@ -47,7 +47,7 @@ def test_registered_functions_have_docstrings():
 
 
 def test_every_registered_export_has_executed_examples():
-    """VERDICT r03 item 3's acceptance bar, made permanent: every public
+    """Every public
     export carries a `>>>` example (the reference's doctests-as-spec
     discipline, SURVEY §4.1). The doctest runner executes them; this
     guards against NEW exports landing without one."""

@@ -56,8 +56,8 @@ class TestUpfirdn:
         (2, 3, 5, 9),         # n_count < up (single partial frame)
     ])
     def test_lane_tile_geometry_vs_scipy(self, up, down, n, k, rng):
-        # the lane-filling output tile (R ~ 128 outputs per frame row,
-        # ROOFLINE.md §7.3) across its geometry edge cases: multi-frame
+        # the lane-filling output tile (R ~ 128 outputs per frame row)
+        # across its geometry edge cases: multi-frame
         # tiles with partial last frames, the huge-down fallback, and
         # tiles that degenerate back to R = up
         x = rng.normal(size=n)
@@ -127,7 +127,7 @@ class TestPFB:
 
     def test_f64_explicit_mxu_strategy_warns(self, rng):
         # 'auto' keeps f64 on the dtype-preserving einsum path; an
-        # explicit MXU strategy downcasts to f32 and must say so
+        # explicit matmul strategy downcasts to f32 and must say so
         import warnings
 
         x = rng.normal(size=2048).astype(np.float64)
@@ -158,8 +158,8 @@ class TestPFB:
     ])
     def test_mxu_strategies_match_einsum(self, strategy, m, tpc, shape,
                                          length, rng):
-        # the PFB *is* a framed DFT with wrapped phase (ROOFLINE.md §7):
-        # both MXU strategies must equal the reference einsum formulation
+        # the PFB *is* a framed DFT with wrapped phase:
+        # both matmul strategies must equal the reference einsum formulation
         x = rng.normal(size=(*shape, length)).astype(np.float32)
         ref = np.asarray(pfb_analyze(x, m, taps_per_channel=tpc,
                                      strategy="einsum"))
@@ -184,8 +184,8 @@ class TestPFB:
         np.testing.assert_allclose(got, ref, atol=2e-6 * np.abs(ref).max())
 
     def test_auto_strategy_dispatch(self, rng):
-        # complex input falls back to einsum; real uses the MXU paths;
-        # the MXU paths reject complex input with a clear error
+        # complex input falls back to einsum; real uses the matmul paths;
+        # the matmul paths reject complex input with a clear error
         xc = (rng.normal(size=3000)
               + 1j * rng.normal(size=3000)).astype(np.complex64)
         r_auto = np.asarray(pfb_analyze(xc, 8, taps_per_channel=4,

@@ -98,7 +98,7 @@ class TestDecimate:
         )
 
     def test_sos_extension_matches_iir_semantics(self, rng):
-        # ftype='sos' (TPU-fast extension): same anti-alias filter as
+        # ftype='sos' (an extension): same anti-alias filter as
         # cascaded biquads; must match scipy's ba-form result
         x = rng.normal(size=(2, 500))
         assert_all_close(decimate(x, 4, ftype="sos"), sps.decimate(x, 4),

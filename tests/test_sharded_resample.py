@@ -1,5 +1,5 @@
 """Sharded polyphase resampling + OA convolution vs single device
-(VERDICT.md round-1 item 7 — BASELINE configs 2 and 4 at pod scale)."""
+(BASELINE configs 2 and 4 across devices)."""
 
 import jax.numpy as jnp
 import numpy as np

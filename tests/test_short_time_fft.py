@@ -235,7 +235,7 @@ class TestFromWinEqualsDual:
 
 
 class TestMatmulForwardPath:
-    """fft_method='matmul' (the TPU MXU dispatch) must match the FFT path
+    """fft_method='matmul' (the matmul DFT) must match the FFT path
     and scipy for both onesided modes, including the istft round trip."""
 
     @pytest.mark.parametrize("fft_mode", ["onesided", "onesided2X"])

@@ -132,7 +132,7 @@ def test_fft_frequencies():
 
 
 class TestSTFTMethods:
-    """The fused MXU framed-DFT path must agree with the FFT path."""
+    """The fused matmul framed-DFT path must agree with the FFT path."""
 
     def test_matmul_vs_fft(self, rng):
         import numpy as np
@@ -250,8 +250,8 @@ class TestSTFTMethods:
 
     def test_frame_chunked_power(self, rng):
         # frame_chunks splits the fused power path into sequential
-        # conv+power chunks written in place (the >=896-channel memory-wall
-        # fix, ROOFLINE.md s3.3); results must match the unchunked path to
+        # conv+power chunks written in place (bounds the conv
+        # intermediate's peak memory); results must match the unchunked path to
         # f32 association (per-frame contractions are identical)
         import numpy as np
         from nx_signal_tpu.kernels.dft import fir_framed_dft
@@ -274,7 +274,7 @@ class TestSTFTMethods:
             return_filtered=False, frame_chunks=4))
         np.testing.assert_allclose(chained, ref, atol=1e-6 * scale)
         # 'auto' picks 1 for small inputs (no chunk overhead) and a
-        # footprint-bounding count when the intermediate would blow HBM
+        # footprint-bounding count when the intermediate would not fit
         from nx_signal_tpu.kernels import dft as K
         assert K._auto_frame_chunks(3, 105, 514, x.size) == 1
         assert K._auto_frame_chunks(768, 3744, 514, 768 * 480000) == 1
@@ -298,7 +298,7 @@ class TestSTFTMethods:
         np.testing.assert_allclose(auto, ref, atol=1e-6 * scale)
 
     def test_precision_kwarg(self, rng):
-        # 'high'/'default' only reduce precision on TPU MXUs; on CPU all
+        # 'high'/'default' may reduce precision on an accelerator; on CPU all
         # three run full-f32 matmuls, so gate loosely and mainly check the
         # knob plumbs through stft/istft end to end
         import numpy as np
@@ -325,9 +325,7 @@ class TestSTFTMethods:
 class TestSharedBlockDFT:
     """fir_framed_dft_shared: the shared hop-block partial-DFT strategy
     must equal the dense fir_framed_dft/framed_dft to f32 association
-    (kernels/dft.py — measured SLOWER than the dense conv-of-blocks on the
-    v5e (ROOFLINE.md §4), kept as the Pallas-era candidate and validated
-    here for correctness)."""
+    (kernels/dft.py; its speed on the H100 is not measured yet)."""
 
     @pytest.fixture
     def rng(self):
@@ -400,7 +398,7 @@ class TestSharedBlockDFT:
 
 
 class TestISTFTMethods:
-    """The fused iDFT+window MXU path must agree with the IFFT path, and
+    """The fused iDFT+window matmul path must agree with the IFFT path, and
     onesided round-trips must reconstruct."""
 
     def test_matmul_vs_fft(self, rng):
@@ -468,11 +466,10 @@ class TestRoundtripSNR:
 
 
 def test_hbm_budget_is_device_aware(monkeypatch):
-    """`frame_chunks='auto'` plans against the DEVICE's reported memory,
-    not the hardcoded v5e constant (VERDICT r03 weak item 2): on a 32 GB
-    chip the 1024-channel chain fits dense; on an 8 GB one it chunks
-    harder than on 16 GB; with no memory stats it falls back to the
-    calibrated v5e budget."""
+    """`frame_chunks='auto'` plans against the DEVICE's reported memory
+    times the stated margin: on a 32 GB device the 1024-channel chain fits
+    dense; on an 8 GB one it chunks harder than on 16 GB; with no memory
+    stats (the CPU) it plans against the fixed no-stats budget."""
     from nx_signal_tpu.kernels import dft as K
 
     class _FakeDev:
@@ -488,8 +485,8 @@ def test_hbm_budget_is_device_aware(monkeypatch):
 
     gib = 1024 ** 3
     fake_devices(32 * gib)
-    assert K._hbm_budget() == 32 * gib * (12.5 / 16)
-    # 1024ch x 10 s @ 48 kHz: chunks on 16 GB (measured OOM boundary),
+    assert K._hbm_budget() == 32 * gib * K._DEVICE_MEMORY_MARGIN
+    # 1024ch x 10 s @ 48 kHz (~15.8 GiB modeled dense): chunks on 16 GB,
     # dense on 32 GB
     assert K._auto_frame_chunks(1024, 3744, 514, 1024 * 480000) == 1
     fake_devices(16 * gib)
@@ -497,5 +494,5 @@ def test_hbm_budget_is_device_aware(monkeypatch):
     assert chunks_16 > 1
     fake_devices(8 * gib)
     assert K._auto_frame_chunks(1024, 3744, 514, 1024 * 480000) > chunks_16
-    fake_devices(None)  # no stats (CPU/interpret) -> calibrated fallback
-    assert K._hbm_budget() == K._AUTO_CHUNK_HBM_BUDGET
+    fake_devices(None)  # no stats (CPU) -> fixed planning budget
+    assert K._hbm_budget() == K._NO_STATS_BUDGET
